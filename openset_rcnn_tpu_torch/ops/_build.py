@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
+for ``sm_90a`` (Hopper) into its own shared library under ``_build/`` on
+first use and loaded with ``ctypes``; nothing includes PyTorch's headers, so
+a build takes seconds. The library's file name carries a hash of its source
+and flags, so an edited source is rebuilt and never served stale.
+
+There is no fast math: ``--fmad=false`` keeps every multiply and add rounded
+on its own, as the plain PyTorch versions compute them, so the NMS keep
+masks match exactly.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("roi_align_fwd", "nms_keep")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
+    """Compile every named kernel that is not built yet, all nvcc runs at once.
+
+    Returns (seconds, {name: compiler output}); raises if a build fails.
+    """
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(logs[n] for n in failed))
+    return time.perf_counter() - t0, logs
+
+
+def load(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The kernel library ``name``, built if needed, with its C signatures set.
+
+    ``functions`` maps each C function to its argument types; every function
+    returns an int (a ``cudaError_t``).
+    """
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in functions.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, what: str, code: int) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}: {lib.cuda_error_string(code).decode()}")

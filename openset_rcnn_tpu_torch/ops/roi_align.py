@@ -1,0 +1,197 @@
+"""Multilevel RoIAlign (V2 / aligned=True): level assignment, plain version,
+kernel wrapper.
+
+Port of ``openset_rcnn_tpu/ops/roi_align.py:37-193, 340-361``. The semantics
+are those of the exact gather path there, for every box shape: the TPU
+kernel's level bump for boxes of aspect ratio above ~3.6 is not reproduced.
+
+* ``assign_levels`` computes each RoI's FPN level once, in torch, with the
+  expression of the JAX version. The kernel and the plain version both take
+  that one result, so ``log2`` rounding cannot move a box across a level
+  boundary between them.
+* ``roi_align_plain`` is the gather formulation in PyTorch, chunked over RoIs
+  (as ``_gather_chunked`` is) so its (chunk, 14, 14, C) neighbour tensors stay
+  small at ~4.3k RoIs per image. The CPU path and the kernel's oracle.
+* ``roi_align`` is the wrapper: plain version for CPU tensors, the CUDA kernel
+  (``csrc/roi_align_fwd.cu``) for CUDA tensors. There is no fallback.
+
+Layout: features are per-level NHWC (B, H_l, W_l, C) bf16; boxes (B, R, 4)
+xyxy f32 in image coordinates; the output is (B, R, P, P, C) f32, the JAX
+package's layout, so a flatten of the last three dims matches its ``fc1``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from . import _build
+
+# RoIs per step of the plain version: 512 RoIs at the static 2x2 grid, the
+# budget of the JAX package's GATHER_CHUNK_BUDGET.
+PLAIN_CHUNK = 512
+NUM_LEVELS = 4
+
+
+def assign_levels(
+    boxes: torch.Tensor,
+    min_level: int = 2,
+    max_level: int = 5,
+    canonical_size: float = 224.0,
+    canonical_level: int = 4,
+) -> torch.Tensor:
+    """(...,) int32 FPN level index (0-based: level - min_level)."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    size = torch.sqrt(torch.clamp(w * h, min=0.0))
+    lvl = torch.floor(canonical_level + torch.log2(size / canonical_size + 1e-8))
+    lvl = torch.clamp(lvl, min_level, max_level)
+    return (lvl - min_level).to(torch.int32)
+
+
+def _sample_axis(lo, hi, extent, P: int, S: int):
+    """Sample geometry along one axis for a chunk of RoIs, as the gather path
+    computes it. lo/hi/extent: (n,) f32. Returns (n, P*S) tensors:
+    floor neighbour, upper neighbour (int64), fraction, in-range mask (f32)."""
+    # Divisions take a tensor divisor: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, one rounding off the true quotient
+    # that the kernel and the JAX gather path compute.
+    idx = torch.arange(P * S, device=lo.device)
+    in_bins = (idx // S).to(torch.float32) + ((idx % S).to(torch.float32) + 0.5) / torch.full_like(lo[:1], S)
+    bin_size = (hi - lo) / torch.full_like(lo, P)
+    v = lo[:, None] + in_bins[None, :] * bin_size[:, None]
+    ext = extent[:, None]
+    ok = ((v > -1.0) & (v < ext)).to(torch.float32)
+    v = torch.minimum(torch.clamp(v, min=0.0), ext - 1.0)
+    v0 = torch.floor(v)
+    v1 = torch.minimum(v0 + 1, ext - 1.0)
+    return v0.to(torch.int64), v1.to(torch.int64), v - v0, ok
+
+
+def roi_align_plain(
+    feats: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+    chunk: int = PLAIN_CHUNK,
+) -> torch.Tensor:
+    """Plain PyTorch RoIAlignV2 on any device; see the module docstring."""
+    B, R = boxes.shape[:2]
+    C = feats[0].shape[-1]
+    P, S = out_size, sampling_ratio
+    dev = boxes.device
+    # one flat (B * sum_l H_l W_l, C) buffer: image-major, then level, then row
+    flat = torch.cat([f.reshape(B, -1, C) for f in feats], dim=1).reshape(-1, C)
+    sizes = [f.shape[1] * f.shape[2] for f in feats]
+    per_image = sum(sizes)
+    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
+    hs = torch.tensor([f.shape[1] for f in feats], dtype=torch.float32, device=dev)
+    ws = torch.tensor([f.shape[2] for f in feats], dtype=torch.float32, device=dev)
+    inv_strides = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
+
+    flat_boxes = boxes.reshape(-1, 4)
+    flat_levels = levels.reshape(-1).long()
+    image = torch.arange(B, device=dev).repeat_interleave(R)
+    out = torch.empty((B * R, P, P, C), dtype=torch.float32, device=dev)
+    for start in range(0, B * R, chunk):
+        sl = slice(start, min(start + chunk, B * R))
+        bx = flat_boxes[sl]
+        lvl = flat_levels[sl]
+        n = bx.shape[0]
+        scale = inv_strides[lvl]
+        H, W = hs[lvl], ws[lvl]
+        y0, y1, ly, oky = _sample_axis(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P, S)
+        x0, x1, lx, okx = _sample_axis(bx[:, 0] * scale - 0.5, bx[:, 2] * scale - 0.5, W, P, S)
+        base = (image[sl] * per_image + offsets[lvl])[:, None, None]
+        Wl = W.long()[:, None, None]
+
+        def gather(yy, xx):
+            idx = base + yy[:, :, None] * Wl + xx[:, None, :]
+            return flat[idx.reshape(-1)].reshape(n, P * S, P * S, C).float()
+
+        w00 = (1 - ly)[:, :, None] * (1 - lx)[:, None, :]
+        w01 = (1 - ly)[:, :, None] * lx[:, None, :]
+        w10 = ly[:, :, None] * (1 - lx)[:, None, :]
+        w11 = ly[:, :, None] * lx[:, None, :]
+        ok = oky[:, :, None] * okx[:, None, :]
+        val = (
+            gather(y0, x0) * w00[..., None]
+            + gather(y0, x1) * w01[..., None]
+            + gather(y1, x0) * w10[..., None]
+            + gather(y1, x1) * w11[..., None]
+        ) * ok[..., None]
+        out[sl] = val.reshape(n, P, S, P, S, C).mean(dim=(2, 4))
+    return out.reshape(B, R, P, P, C)
+
+
+_SIGNATURE = {
+    "roi_align_fwd": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 4
+    + [ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p, ctypes.c_void_p],
+}
+
+
+def _check_cuda_inputs(feats, boxes, levels, strides, P, S):
+    if len(feats) != NUM_LEVELS or len(strides) != NUM_LEVELS:
+        raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(feats)}")
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, R, 4) float32, got {tuple(boxes.shape)} {boxes.dtype}")
+    B, R = boxes.shape[:2]
+    if levels.dtype != torch.int32 or tuple(levels.shape) != (B, R):
+        raise ValueError(f"levels must be ({B}, {R}) int32, got {tuple(levels.shape)} {levels.dtype}")
+    C = feats[0].shape[-1]
+    for f in feats:
+        if f.dtype != torch.bfloat16 or f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
+            raise ValueError(f"features must be (B, H, W, {C}) bfloat16, got {tuple(f.shape)} {f.dtype}")
+    for t in (*feats, boxes, levels):
+        if t.device != boxes.device:
+            raise ValueError("features, boxes and levels must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("features (NHWC), boxes and levels must be contiguous")
+    if S < 1 or P * S > 32:
+        raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
+
+
+def roi_align(
+    feats: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlignV2 forward: (B, R, P, P, C) f32 from NHWC bf16 P2-P5.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_plain(feats, boxes, levels, strides, out_size, sampling_ratio)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align runs on CPU or CUDA tensors, not {boxes.device}")
+    P, S = out_size, sampling_ratio
+    _check_cuda_inputs(feats, boxes, levels, strides, P, S)
+    B, R = boxes.shape[:2]
+    C = feats[0].shape[-1]
+    out = torch.empty((B, R, P, P, C), dtype=torch.float32, device=boxes.device)
+    if B * R == 0:
+        return out
+    lib = _build.load("roi_align_fwd", _SIGNATURE)
+    hw = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    with torch.cuda.device(boxes.device):
+        code = lib.roi_align_fwd(
+            *[f.data_ptr() for f in feats], *hw, *[1.0 / s for s in strides],
+            boxes.data_ptr(), levels.data_ptr(), B * R, R, C, P, S,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, "roi_align_fwd", code)
+    roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0  # kernel launches since the last reset

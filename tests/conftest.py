@@ -27,6 +27,7 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (minutes)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU with CUDA; skips without one")
 
 
 @pytest.fixture
