@@ -16,7 +16,22 @@ In order it
   6. serve: Predictor on configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml at
      832x1344, batch 8, seeded random weights; warm-up, then timed batches with
      CUDA events, the stage split, launch counts, output checks, and the
-     cascade with kernel NMS against the cascade with plain NMS.
+     cascade with kernel NMS against the cascade with plain NMS;
+  7. iou_match: the fused IoU+matcher kernel against its plain version at
+     the training shapes (B=4, G=100 padded GT, R=93,093 anchors of the
+     832x1344 bucket), with an image without valid GT, a zero-area GT and
+     integer coordinates that make IoUs tie: all four outputs exactly equal;
+  8. roi_align_bwd: the RoIAlign-backward kernel against its plain version at
+     B=4 x 512 RoIs, C=256 on the 832x1344 pyramid: f32 accumulators
+     elementwise within 1e-5 * max(1, max|want|) (atomics reorder the sums);
+  9. train reference: one training step (six losses, ten scalars, gradient
+     norms per module) on the GPU against the CPU (plain versions) on a
+     2x64x96 batch with the same sampling draws;
+ 10. train: Trainer on the same config at 832x1344, batch 4, on the synthetic
+     batch of bench.py (20 GT boxes per image); warm-up, then timed steps with
+     CUDA events, the stage split, launch counts, finite losses, frozen
+     parameters and buffers bitwise unchanged, trainable ones moved, and one
+     step under torch.profiler (device idle share, device time by kernel).
 Then it prints one JSON line of kernel figures and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises. Without a CUDA device, or outside a checkout of the
@@ -39,10 +54,18 @@ ATOL, RTOL = 2e-5, 1e-5  # RoIAlign kernel vs plain, elementwise
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 ROI_FLOPS_PER_OUTPUT = 4 * 8 + 1  # per sample: 4 mul + 3 add + 1 accumulate; then the mean
-IOU_FLOPS = 15                    # one IoU test of the greedy scan
+IOU_FLOPS = 15                    # one IoU test of the greedy scan or the matcher
+ROI_BWD_FLOPS_PER_SAMPLE = 4 * 2  # per sample and channel: 4 neighbours x (weight mul + add)
 SERVE_WARMUP, SERVE_BATCHES = 2, 5
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_BATCH = 4                   # SOLVER.IMS_PER_BATCH of the config
+TRAIN_ROIS = 512                  # MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+BWD_TOL = 1e-5                    # RoIAlign backward kernel vs plain, scaled by max(1, max|want|)
+REF_TOL = 1e-3                    # GPU vs CPU, scaled by max(1, |want|)
 # true (h, w) of the serve batch's images inside the bucket
 IMAGE_HW = [[832, 1344], [800, 1333], [832, 1110], [600, 1344], [750, 1000], [832, 1344], [512, 768], [700, 1200]]
+COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",
+               "rpn/num_proposals", "roi_head/num_fg_samples", "roi_head/num_bg_samples")
 
 
 def check(cond, what):
@@ -201,8 +224,9 @@ def phase_reference(torch, dev):
 
 def phase_serve(torch, dev):
     from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.ops.iou_match import iou_match
     from openset_rcnn_tpu_torch.ops.nms import nms_keep, nms_keep_plain
-    from openset_rcnn_tpu_torch.ops.roi_align import roi_align
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
 
     cfg = load_cfg()
     t0 = time.perf_counter()
@@ -219,8 +243,8 @@ def phase_serve(torch, dev):
 
     # the main path: counts at 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
-    roi_align.launches = 0
-    nms_keep.launches = 0
+    for fn in (roi_align, nms_keep, roi_align_bwd, iou_match):
+        fn.launches = 0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(SERVE_BATCHES + 1)]
     wall = time.perf_counter()
     events[0].record()
@@ -229,9 +253,10 @@ def phase_serve(torch, dev):
         events[i + 1].record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - wall) * 1e3 / SERVE_BATCHES
-    launches = {"roi_align_fwd": roi_align.launches, "nms_keep": nms_keep.launches}
-    check(launches["roi_align_fwd"] == SERVE_BATCHES, f"roi_align launches {launches}")
-    check(launches["nms_keep"] == 2 * SERVE_BATCHES, f"nms_keep launches {launches}")
+    launches = {"roi_align_fwd": roi_align.launches, "nms_keep": nms_keep.launches,
+                "roi_align_bwd": roi_align_bwd.launches, "iou_match": iou_match.launches}
+    want = {"roi_align_fwd": SERVE_BATCHES, "nms_keep": 2 * SERVE_BATCHES, "roi_align_bwd": 0, "iou_match": 0}
+    check(launches == want, f"serve launches {launches}, expected {want}")
     batch_ms = [events[i].elapsed_time(events[i + 1]) for i in range(SERVE_BATCHES)]
     ms = sum(batch_ms) / SERVE_BATCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -270,6 +295,272 @@ def phase_serve(torch, dev):
     return launches, dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms, stages_ms=stages, peak_gb=peak_gb)
 
 
+def bench_batch(torch, batch_size, max_gt):
+    """The synthetic 832x1344 training batch of bench.py:105-128, on the host:
+    20 GT boxes per image, uniform in position and size, true size 800x1333."""
+    import numpy as np
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((batch_size, max_gt, 4), np.float32)
+    classes = np.zeros((batch_size, max_gt), np.int32)
+    valid = np.zeros((batch_size, max_gt), bool)
+    for b in range(batch_size):
+        n = 20
+        xy = rng.uniform(0, 600, (n, 2))
+        wh = rng.uniform(30, 300, (n, 2))
+        boxes[b, :n] = np.concatenate([xy, xy + wh], 1)
+        classes[b, :n] = rng.randint(0, 20, n)
+        valid[b, :n] = True
+    images = rng.uniform(0, 255, (batch_size, *BUCKET, 3)).astype(np.float32)
+    return ImageBatch(torch.from_numpy(images), torch.tensor([[800.0, 1333.0]] * batch_size),
+                      GroundTruth(torch.from_numpy(boxes), torch.from_numpy(classes), torch.from_numpy(valid)))
+
+
+def phase_iou_match(torch, dev):
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, compute_anchors
+    from openset_rcnn_tpu_torch.ops.iou_match import iou_match, iou_match_plain
+
+    cfg = load_cfg()
+    anchors, _ = compute_anchors(ModelSpec.from_cfg(cfg), BUCKET)
+    anchors[::3] = anchors[::3].round()  # integer anchors against integer GT: exact IoU ties
+    anchors = torch.from_numpy(anchors).to(dev)
+    gt = bench_batch(torch, TRAIN_BATCH, cfg.TPU.MAX_GT_PER_IMAGE).gt
+    boxes, valid = gt.boxes.clone(), gt.valid.clone()
+    boxes[1] = boxes[1].round()  # integer GT
+    boxes[1, 5] = boxes[1, 4]    # a duplicate GT row: ties between GT
+    boxes[2, 1] = torch.tensor([100.0, 100.0, 100.0, 160.0])  # zero area
+    valid[3] = False             # an image without valid GT
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = iou_match(anchors, boxes, valid)
+    want = iou_match_plain(anchors, boxes, valid)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        check(torch.equal(a, b), f"iou_match kernel vs plain: {name} differs in {int((a != b).sum())} places")
+    max_abs = max(float((got.max_iou - want.max_iou).abs().max()),
+                  float((got.matched_boxes - want.matched_boxes).abs().max()))
+    check(bool((want.max_iou[3] == -1).all()) and not bool(want.rescued[3].any()), "iou_match: image without GT")
+    m = want.max_iou[1]
+    n_tied = int((m > 0).sum()) - len(torch.unique(m[m > 0]))
+    check(n_tied > 0 and int(want.rescued.sum()) > 0, "iou_match: the inputs reach no ties or no rescue")
+    ms = time_ms(torch, lambda: iou_match(anchors, boxes, valid), 20)
+    plain_ms = time_ms(torch, lambda: iou_match_plain(anchors, boxes, valid), 3)
+    B, G = boxes.shape[:2]
+    R = anchors.shape[0]
+    # one IoU per anchor and valid GT; anchors and GT read once, four outputs written once
+    n_bytes = anchors.numel() * 4 + boxes.numel() * 4 + valid.numel() + B * R * (4 + 4 + 1 + 16)
+    n_pairs = int(valid.sum()) * R
+    bound_ms, bound_by = bound(n_bytes, n_pairs * IOU_FLOPS)
+    print(f"iou_match: B={B} G={G} R={R}, {int(valid.sum())} valid GT, {n_pairs} anchor-GT pairs; "
+          f"all four outputs exact ({int(want.rescued.sum())} rescued anchors, {n_tied} tied IoUs in the "
+          f"integer image); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+    return dict(name="iou_match", route="cuda", source="openset_rcnn_tpu_torch/csrc/iou_match.cu",
+                replaces="openset_rcnn_tpu/ops/pallas/iou_match_kernel.py:100", max_abs_err=max_abs,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_roi_align_bwd(torch, dev):
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align_bwd, roi_align_bwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, R, C, P, S = TRAIN_BATCH, TRAIN_ROIS, 256, 7, 2
+    H, W = BUCKET
+    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
+    boxes = roi_boxes(torch, g, B, R, dev)
+    levels = assign_levels(boxes)
+    cot = torch.randn(B, R, P, P, C, generator=g, device=dev)
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
+    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    check(max_abs <= BWD_TOL * scale, f"roi_align_bwd kernel vs plain: max abs {max_abs} > {BWD_TOL} * {scale}")
+    per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
+    plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S), 2)
+    # the cotangent, boxes and levels read once; the f32 accumulators written once
+    acc_bytes = sum(w.numel() * 4 for w in want)
+    n_bytes = cot.numel() * 4 + boxes.numel() * 4 + levels.numel() * 4 + acc_bytes
+    bound_ms, bound_by = bound(n_bytes, cot.numel() * (S * S * ROI_BWD_FLOPS_PER_SAMPLE + 1))
+    print(f"roi_align_bwd: B={B} R={R} C={C} RoIs per level {per_level}; max abs err {max_abs:.3e} "
+          f"(limit {BWD_TOL * scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {n_bytes / 1e9:.3f} GB of which {acc_bytes / 1e9:.3f} GB accumulators)", flush=True)
+    return dict(name="roi_align_bwd", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
+                replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", max_abs_err=max_abs,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def group_grad_norms(model):
+    """{top-level module: L2 norm of its parameters' gradients}."""
+    sq = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            top = name.split(".")[0]
+            sq[top] = sq.get(top, 0.0) + float(p.grad.double().pow(2).sum())
+    return {k: math.sqrt(v) for k, v in sq.items()}
+
+
+def phase_train_reference(torch, dev):
+    """One training step on the GPU against the same seeded model on the CPU."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    cfg = load_cfg()
+    B, H, W, G = 2, 64, 96, 8
+    g = torch.Generator().manual_seed(6)
+    u = lambda *s: torch.rand(*s, generator=g)
+    images = torch.tensor(cfg.MODEL.PIXEL_MEAN) + (u(B, H, W, 3) * 8.0 - 4.0)  # moderate activations
+    xy, wh = u(B, G, 2) * 60.0, 10.0 + u(B, G, 2) * 30.0
+    classes = torch.randint(0, 81, (B, G), generator=g, dtype=torch.int32)
+    classes[:, :3] = torch.tensor([[2, 5, 40], [11, 19, 70]], dtype=torch.int32)  # known, known, unknown
+    valid = u(B, G) > 0.3
+    valid[:, :3] = True
+    batch = ImageBatch(images, torch.tensor([[64.0, 96.0], [50.0, 70.0]]),
+                       GroundTruth(torch.cat([xy, xy + wh], -1), classes, valid))
+    cpu, gpu = Trainer(cfg, device="cpu", seed=0), Trainer(cfg, seed=0)
+    anchors, level_sizes = cpu.anchors((H, W))
+    n_props = sum(min(cpu.spec.pre_nms_topk_train, n) for n in level_sizes)
+    draws = {"rpn": u(B, 2, 2, anchors.shape[0]), "roi": u(B, 3, n_props + G)}
+    want = cpu.step(batch, uniforms=draws)
+    got = gpu.step(batch, uniforms={k: v.to(dev) for k, v in draws.items()})
+    check(set(got) == set(want), "train reference: metric keys differ")
+    worst = 0.0
+    for k, w in want.items():
+        a, b = float(got[k]), float(w)
+        if k in COUNT_STATS:
+            check(a == b, f"train reference: {k} GPU {a} vs CPU {b}")
+            continue
+        check(math.isfinite(a), f"train reference: {k} is not finite on the GPU")
+        err = abs(a - b) / max(1.0, abs(b))
+        check(err <= REF_TOL, f"train reference: {k} GPU {a} vs CPU {b}, scaled error {err:.3e}")
+        worst = max(worst, err)
+    norms_cpu, norms_gpu = group_grad_norms(cpu.model), group_grad_norms(gpu.model)
+    check(set(norms_cpu) == set(norms_gpu), "train reference: modules with gradients differ")
+    for k, b in norms_cpu.items():
+        err = abs(norms_gpu[k] - b) / max(1.0, b)
+        check(err <= REF_TOL, f"train reference: {k} gradient norm GPU {norms_gpu[k]} vs CPU {b}")
+        worst = max(worst, err)
+    print(f"train reference: GPU vs CPU step (2x64x96): {len(want)} metrics and {len(norms_cpu)} gradient "
+          f"norms, worst scaled error {worst:.3e}; counts equal "
+          + json.dumps({k: float(want[k]) for k in COUNT_STATS}), flush=True)
+
+
+def phase_train(torch, dev):
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.ops.iou_match import iou_match
+    from openset_rcnn_tpu_torch.ops.nms import nms_keep
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    cfg = load_cfg()
+    check(cfg.SOLVER.IMS_PER_BATCH == TRAIN_BATCH, f"the config trains at batch {cfg.SOLVER.IMS_PER_BATCH}")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, seed=0)
+    check(trainer.device.type == "cuda", "Trainer did not choose the GPU")
+    host = bench_batch(torch, TRAIN_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+    model = trainer.model
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    for _ in range(TRAIN_WARMUP):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    print(f"train: model built and {TRAIN_WARMUP} warm-up steps in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (roi_align, roi_align_bwd, iou_match, nms_keep):
+        fn.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    history = []
+    wall = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        history.append(trainer.step(batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - wall) * 1e3 / TRAIN_STEPS
+    launches = {"roi_align_fwd": roi_align.launches, "roi_align_bwd": roi_align_bwd.launches,
+                "iou_match": iou_match.launches, "nms_keep": nms_keep.launches}
+    want = {"roi_align_fwd": TRAIN_STEPS, "roi_align_bwd": TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS, "nms_keep": 0}
+    check(launches == want, f"train launches {launches}, expected {want}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
+    ms = sum(step_ms) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in history:
+        for k, v in m.items():
+            check(math.isfinite(float(v)), f"train: {k} is not finite")
+
+    # stage split of one more step
+    marks = [("start", torch.cuda.Event(enable_timing=True))]
+    marks[0][1].record()
+
+    def mark(stage):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((stage, e))
+
+    last = trainer.step(batch, mark=mark)
+    torch.cuda.synchronize()
+    stages = {s: marks[i][1].elapsed_time(e) for i, (s, e) in enumerate(marks[1:])}
+    stages["forward"] = sum(x for s, x in stages.items() if s not in ("backward", "optimizer"))
+    profile = profile_step(torch, lambda: trainer.step(batch))
+
+    for n, p in model.named_parameters():
+        if n in frozen:
+            check(torch.equal(p, frozen[n]), f"train: frozen parameter {n} changed")
+    for n, b in model.named_buffers():
+        check(torch.equal(b, buffers[n]), f"train: buffer {n} changed")
+    unmoved = [n for n, p in model.named_parameters() if n in before and torch.equal(p, before[n])]
+    check(not unmoved, f"train: trainable parameters that did not move: {unmoved}")
+    print(f"train: {ms:.2f} ms/step ({TRAIN_BATCH * 1e3 / ms:.2f} img/s) over {TRAIN_STEPS} steps "
+          f"(per step {[round(x, 2) for x in step_ms]}; host clock {wall:.2f} ms/step); peak memory "
+          f"{peak_gb:.2f} GB; {len(frozen)} frozen parameters and {len(buffers)} buffers unchanged, "
+          f"{len(before)} trainable parameters moved", flush=True)
+    print("train stages (ms): " + json.dumps({k: round(x, 3) for k, x in stages.items()}), flush=True)
+    print("train: last step " + json.dumps({k: round(float(v), 6) for k, v in last.items()}), flush=True)
+    print("train: launches over the timed steps " + json.dumps(launches), flush=True)
+    print("train profile: " + json.dumps(profile), flush=True)
+    return launches, dict(ms_per_step=ms, img_per_s=TRAIN_BATCH * 1e3 / ms, stages_ms=stages, peak_gb=peak_gb,
+                          device_idle_share=profile["idle_share"])
+
+
+def profile_step(torch, step):
+    """One step under torch.profiler: the device's busy time (the union of
+    its kernels' intervals) against the step's span on CUDA events, and the
+    device time by kernel name (the top ones and the port's own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(bool(spans), "profile: the profiler saw no device activity")
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy_us, lo, hi = busy_us + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    busy_ms = (busy_us + hi - lo) / 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), key=lambda kv: -kv[1])
+    own = {name: sum(ms for key, ms in kernels if name in key)
+           for name in ("roi_align_fwd_kernel", "roi_align_bwd_kernel", "iou_match_pass", "nms_keep")}
+    return dict(step_ms=step_ms, device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / step_ms),
+                kernel_ms_total=sum(ms for _, ms in kernels), own_kernels_ms=own,
+                top_kernels_ms=[[key[:60], round(ms, 3)] for key, ms in kernels[:8]])
+
+
 def main():
     if not (ROOT / "openset_rcnn_tpu_torch" / "csrc").is_dir() or not CONFIG.exists():
         print("chip_smoke: run from the root of a checkout of the repository", file=sys.stderr)
@@ -297,14 +588,21 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [phase_roi_align(torch, dev), phase_nms(torch, dev)]
+    kernels = [phase_roi_align(torch, dev), phase_nms(torch, dev), phase_iou_match(torch, dev),
+               phase_roi_align_bwd(torch, dev)]
     phase_reference(torch, dev)
-    launches, serve = phase_serve(torch, dev)
+    serve_launches, serve = phase_serve(torch, dev)
+    phase_train_reference(torch, dev)
+    train_launches, train = phase_train(torch, dev)
+    # launches: from the path that brought the kernel (serve: K1, K4; train: K2, K3)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        path = serve_launches if k["name"] in ("roi_align_fwd", "nms_keep") else train_launches
+        k["launches"] = path[k["name"]]
+        k["launches_by_path"] = {"serve": serve_launches[k["name"]], "train": train_launches[k["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path")
     print("serve: " + json.dumps(serve))
+    print("train: " + json.dumps(train))
     print(json.dumps({"kernels": [{k: entry[k] for k in keys} for entry in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
-"""OpensetRCNN: the two-stage open-set detector, inference forward.
+"""OpensetRCNN: the two-stage open-set detector, training losses and
+inference forward.
 
-Port of ``openset_rcnn_tpu/models/detector.py:48-316, 319-324, 469-499``:
-``ModelSpec.from_cfg``, the module holding every parameter, anchors per image
-bucket, and ``inference_forward`` (preprocess -> backbone + FPN -> CF-RPN ->
-proposals -> RoIAlign -> heads -> ``RawDetections``).
+Port of ``openset_rcnn_tpu/models/detector.py:48-499``: ``ModelSpec.from_cfg``
+and ``opendet_id_map``, the module holding every parameter, anchors per image
+bucket, ``training_losses_and_stats`` (the six losses and ten training
+scalars of one batch) and ``inference_forward`` (preprocess -> backbone +
+FPN -> CF-RPN -> proposals -> RoIAlign -> heads -> ``RawDetections``).
 
 Layout: images enter as (B, H, W, 3) raw BGR pixels, the JAX layout; the
 trunk runs NCHW in ``channels_last`` memory, so on the GPU the FPN maps are
@@ -11,7 +13,7 @@ NHWC-contiguous for the RoIAlign kernel.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,11 +22,22 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.anchors import fpn_anchors
 from ..ops.box_transforms import Box2BoxTransform, Box2BoxTransformLinear
-from ..structures import RawDetections
+from ..structures import ImageBatch, RawDetections
 from .fpn import FPN
 from .resnet import ResNet
-from .roi_heads import BoxHead, BoxIouPredictor, KnownClassifier, PLNHead, pool_features, raw_detections
-from .rpn import ClsFreeRPNHead, select_proposals
+from .roi_heads import (
+    BoxHead,
+    BoxIouPredictor,
+    KnownClassifier,
+    PLNHead,
+    box_iou_losses,
+    classifier_loss,
+    label_and_sample_proposals,
+    pln_loss,
+    pool_features,
+    raw_detections,
+)
+from .rpn import ClsFreeRPNHead, rpn_losses, rpn_targets, select_proposals
 
 RPN_STRIDES = (4, 8, 16, 32, 64)
 ROI_STRIDES = (4, 8, 16, 32)
@@ -32,61 +45,140 @@ ROI_STRIDES = (4, 8, 16, 32)
 
 class ModelSpec(NamedTuple):
     """Static hyperparameters distilled from a CfgNode: the fields of the JAX
-    ModelSpec that the serving path reads, under the same names. Training
-    fields join with the training slice."""
+    ModelSpec that the serving and training paths read, under the same
+    names."""
 
+    num_classes: int
     num_known_classes: int
     pixel_mean: Tuple[float, ...]
     pixel_std: Tuple[float, ...]
     anchor_sizes: Tuple[Tuple[float, ...], ...]
     anchor_aspect_ratios: Tuple[float, ...]
+    # rpn
+    rpn_batch_size: int
+    rpn_positive_fraction: float
+    rpn_obj_positive_fraction: float
+    rpn_reg_thresholds: Tuple[float, float]
+    rpn_obj_thresholds: Tuple[float, float]
+    rpn_loc_weight: float
+    rpn_ctr_weight: float
+    rpn_box_reg_loss_type: str
+    rpn_ctr_smooth_l1_beta: float
+    pre_nms_topk_train: int
     pre_nms_topk_test: int
     min_box_size: float
+    # roi
+    roi_batch_size: int
+    roi_positive_fraction: float
+    roi_iou_threshold: float
     fc_dim: int
     pooler_resolution: int
     roi_sampling_ratio: int
     bbox_reg_weights: Tuple[float, ...]
+    box_reg_loss_type: str
+    box_smooth_l1_beta: float
+    iou_smooth_l1_beta: float
+    box_loss_weight: float
+    iou_loss_weight: float
+    cls_loss_weight: float
     mean_type: str
+    # pln
     emd_dim: int
     distance_type: str
     reps_per_class: int
+    pln_alpha: float
+    pln_beta: float
+    pln_iou_threshold: float
+    pln_loss_weight: float
+    # mapping
+    id_map: Tuple[int, ...]  # contiguous id (+bg) -> known index / -1
+    # misc
+    freeze_at: int
     compute_dtype: str
     backbone_name: str
     rpn_delta_bias_init: float
     resnet_depth: int
+    roi_align_bwd: str
 
     @staticmethod
     def from_cfg(cfg) -> "ModelSpec":
+        """The spec of ``cfg``. Only the OpenDet protocol's class-id map is
+        ported (``OPENDET_BENCHMARK true``); GraspNet's map needs the dataset
+        catalog, which comes with the data slice of the port."""
         m = cfg.MODEL
+        if not cfg.OPENDET_BENCHMARK:
+            raise NotImplementedError(
+                "OPENDET_BENCHMARK false needs the known-class id map of the dataset catalog "
+                "(openset_rcnn_tpu/engine/train_loop.py:66-75), which the port's data slice brings"
+            )
         return ModelSpec(
+            num_classes=m.ROI_HEADS.NUM_CLASSES,
             num_known_classes=m.ROI_HEADS.NUM_KNOWN_CLASSES,
             pixel_mean=tuple(m.PIXEL_MEAN),
             pixel_std=tuple(m.PIXEL_STD),
             anchor_sizes=tuple(tuple(s) for s in m.ANCHOR_GENERATOR.SIZES),
             anchor_aspect_ratios=tuple(m.ANCHOR_GENERATOR.ASPECT_RATIOS[0]),
+            rpn_batch_size=m.RPN.BATCH_SIZE_PER_IMAGE,
+            rpn_positive_fraction=m.RPN.POSITIVE_FRACTION,
+            rpn_obj_positive_fraction=m.RPN.POSITIVE_FRACTION_OBJECTNESS,
+            rpn_reg_thresholds=tuple(m.RPN.IOU_THRESHOLDS),
+            rpn_obj_thresholds=tuple(m.RPN.IOU_THRESHOLDS_OBJECTNESS),
+            rpn_loc_weight=m.RPN.BBOX_REG_LOSS_WEIGHT * m.RPN.LOSS_WEIGHT,
+            rpn_ctr_weight=m.RPN.CTR_REG_LOSS_WEIGHT * m.RPN.LOSS_WEIGHT,
+            rpn_box_reg_loss_type=m.RPN.BBOX_REG_LOSS_TYPE,
+            rpn_ctr_smooth_l1_beta=m.RPN.CTR_SMOOTH_L1_BETA,
+            pre_nms_topk_train=m.RPN.PRE_NMS_TOPK_TRAIN,
             pre_nms_topk_test=m.RPN.PRE_NMS_TOPK_TEST,
             min_box_size=float(m.PROPOSAL_GENERATOR.MIN_SIZE),
+            roi_batch_size=m.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+            roi_positive_fraction=m.ROI_HEADS.POSITIVE_FRACTION,
+            roi_iou_threshold=m.ROI_HEADS.IOU_THRESHOLDS[0],
             fc_dim=m.ROI_BOX_HEAD.FC_DIM,
             pooler_resolution=m.ROI_BOX_HEAD.POOLER_RESOLUTION,
             roi_sampling_ratio=cfg.TPU.ROI_SAMPLING_RATIO,
             bbox_reg_weights=tuple(m.ROI_BOX_HEAD.BBOX_REG_WEIGHTS),
+            box_reg_loss_type=m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,
+            box_smooth_l1_beta=m.ROI_BOX_HEAD.SMOOTH_L1_BETA,
+            iou_smooth_l1_beta=m.ROI_BOX_HEAD.IOU_SMOOTH_L1_BETA,
+            box_loss_weight=m.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT,
+            iou_loss_weight=m.ROI_BOX_HEAD.IOU_REG_LOSS_WEIGHT,
+            cls_loss_weight=m.ROI_BOX_HEAD.CLS_LOSS_WEIGHT,
             mean_type=m.ROI_HEADS.MEAN_TYPE,
             emd_dim=m.PLN.EMD_DIM,
             distance_type=m.PLN.DISTANCE_TYPE,
             reps_per_class=m.PLN.REPS_PER_CLASS,
+            pln_alpha=m.PLN.ALPHA,
+            pln_beta=m.PLN.BETA,
+            pln_iou_threshold=m.PLN.IOU_THRESHOLD,
+            pln_loss_weight=m.PLN.LOSS_WEIGHT,
+            id_map=tuple(opendet_id_map(m.ROI_HEADS.NUM_CLASSES, m.ROI_HEADS.NUM_KNOWN_CLASSES)),
+            freeze_at=m.BACKBONE.FREEZE_AT,
             compute_dtype=cfg.TPU.DTYPE,
             backbone_name=m.BACKBONE.NAME,
             rpn_delta_bias_init=m.RPN.get("DELTA_BIAS_INIT", 0.0),
             resnet_depth=m.RESNETS.DEPTH,
+            roi_align_bwd=cfg.TPU.ROI_ALIGN_BWD,
         )
+
+
+def opendet_id_map(num_classes: int, num_known: int) -> List[int]:
+    """OpenDet benchmark mapping (``openset_rcnn_tpu/models/detector.py:172-180``):
+    contiguous ids < num_known map to themselves, background (num_classes) to
+    num_known, every other id to -1."""
+    out = [-1] * (num_classes + 1)
+    for i in range(num_known):
+        out[i] = i
+    out[num_classes] = num_known
+    return out
 
 
 class OpensetRCNN(nn.Module):
     """Every parameter of the detector; the functions below do the rest.
 
-    The port runs the R50-FPN trunk in float32 with the static RoIAlign grid;
-    the bf16 trunk, the adaptive grid and the Swin/ViT backbones are later
-    slices and raise here.
+    The port runs the R50-FPN trunk in float32 with the static RoIAlign grid
+    and f32 RoIAlign-backward accumulators; the bf16 trunk and accumulators,
+    the adaptive grid and the Swin/ViT backbones are later slices and raise
+    here.
     """
 
     def __init__(self, spec: ModelSpec):
@@ -97,6 +189,9 @@ class OpensetRCNN(nn.Module):
             raise NotImplementedError(f"compute dtype {spec.compute_dtype} is not ported yet")
         if spec.roi_sampling_ratio < 1:
             raise NotImplementedError("the adaptive RoIAlign grid (ROI_SAMPLING_RATIO -1) is not ported yet")
+        if spec.roi_align_bwd == "pallas_bf16":
+            raise NotImplementedError("bf16 RoIAlign-backward accumulators (TPU.ROI_ALIGN_BWD pallas_bf16) "
+                                      "come with the bf16 slice of the port")
         self.spec = spec
         num_anchors = len(spec.anchor_aspect_ratios) * len(spec.anchor_sizes[0])
         self.backbone = ResNet(depth=spec.resnet_depth)
@@ -205,3 +300,110 @@ def inference_forward(
     if mark:
         mark("heads")
     return raw
+
+
+def training_losses_and_stats(
+    model: OpensetRCNN,
+    batch: ImageBatch,
+    spec: ModelSpec,
+    anchors: torch.Tensor,
+    level_sizes: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Mapping[str, torch.Tensor]] = None,
+    mark: Mark = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The six losses and ten training scalars of one batch.
+
+    Port of ``openset_rcnn_tpu/models/detector.py:343-466``. The sampling
+    draws come from ``uniforms`` when given, {"rpn": (B, 2, 2, R), "roi":
+    (B, 3, P + G)} (see ``rpn_targets`` and ``label_and_sample_proposals``),
+    else from ``generator``. Targets and proposals carry no gradient (the
+    JAX ``stop_gradient`` on the proposals' inputs). ``mark(stage)``, when
+    given, is called after each stage of the forward ("backbone", "rpn":
+    head, targets and losses, "sampling": proposals and ROI sampling,
+    "roi_align", "heads": heads, ROI losses and scalars).
+    """
+    uniforms = uniforms or {}
+    linear_tf = Box2BoxTransformLinear(normalize_by_size=True)
+    fpn_feats = model.features(batch.images, batch.image_hw)
+    if mark:
+        mark("backbone")
+    pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)
+    gt = batch.gt
+
+    targets = rpn_targets(
+        anchors, gt,
+        batch_size_per_image=spec.rpn_batch_size,
+        positive_fraction=spec.rpn_positive_fraction,
+        objectness_positive_fraction=spec.rpn_obj_positive_fraction,
+        reg_thresholds=spec.rpn_reg_thresholds,
+        obj_thresholds=spec.rpn_obj_thresholds,
+        generator=generator, uniforms=uniforms.get("rpn"),
+    )
+    losses = rpn_losses(
+        anchors, pred_deltas, pred_ctr, targets, linear_tf,
+        batch_size_per_image=spec.rpn_batch_size,
+        loc_weight=spec.rpn_loc_weight,
+        ctr_weight=spec.rpn_ctr_weight,
+        box_reg_loss_type=spec.rpn_box_reg_loss_type,
+        ctr_smooth_l1_beta=spec.rpn_ctr_smooth_l1_beta,
+    )
+    if mark:
+        mark("rpn")
+    proposals = select_proposals(
+        anchors, pred_deltas.detach(), pred_ctr.detach(), level_sizes, batch.image_hw, linear_tf,
+        pre_topk=spec.pre_nms_topk_train, min_box_size=spec.min_box_size,
+    )
+    rois = label_and_sample_proposals(
+        proposals, gt,
+        num_samples=spec.roi_batch_size,
+        positive_fraction=spec.roi_positive_fraction,
+        iou_threshold=spec.roi_iou_threshold,
+        num_classes=spec.num_classes,
+        generator=generator, uniforms=uniforms.get("roi"),
+    )
+    if mark:
+        mark("sampling")
+    pooled = pool_features(fpn_feats, rois.boxes, strides=ROI_STRIDES,
+                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio)
+    if mark:
+        mark("roi_align")
+    deltas, iou, emb, reps, logits = model.roi_heads(pooled)
+    losses.update(box_iou_losses(
+        deltas, iou, rois, Box2BoxTransform(spec.bbox_reg_weights), spec.num_classes,
+        box_weight=spec.box_loss_weight,
+        iou_weight=spec.iou_loss_weight,
+        box_smooth_l1_beta=spec.box_smooth_l1_beta,
+        iou_smooth_l1_beta=spec.iou_smooth_l1_beta,
+        box_reg_loss_type=spec.box_reg_loss_type,
+    ))
+    id_map = torch.tensor(spec.id_map, dtype=torch.int64, device=anchors.device)
+    losses["loss_dml"] = pln_loss(
+        emb, reps, rois, id_map, spec.num_known_classes, spec.reps_per_class,
+        spec.pln_alpha, spec.pln_beta, spec.pln_iou_threshold, spec.pln_loss_weight, spec.distance_type,
+    )
+    losses["loss_cls"] = classifier_loss(logits, rois, id_map, spec.cls_loss_weight)
+
+    # the reference's EventStorage scalars, kept on the device
+    B = batch.images.shape[0]
+    stats = {
+        "rpn/num_pos_anchors": (targets.reg_labels == 1).sum() / B,
+        "rpn/num_neg_anchors": (targets.reg_labels == 0).sum() / B,
+        "rpn/obj_num_pos_anchors": (targets.obj_labels == 1).sum() / B,
+        "rpn/obj_num_neg_anchors": (targets.obj_labels == 0).sum() / B,
+        "rpn/num_proposals": proposals.valid.sum() / B,
+        "roi_head/num_fg_samples": rois.is_fg.sum() / B,
+        "roi_head/num_bg_samples": (rois.valid & ~rois.is_fg).sum() / B,
+    }
+    labels = id_map[rois.gt_classes]
+    pred = torch.argmax(logits.detach(), dim=-1)
+    valid = rois.valid & (labels >= 0)
+    fg = valid & (labels < spec.num_known_classes)
+    n_valid = torch.clamp(valid.sum(), min=1)
+    n_fg = torch.clamp(fg.sum(), min=1)
+    stats["softmax_classifier/cls_accuracy"] = ((pred == labels) & valid).sum() / n_valid
+    stats["softmax_classifier/fg_cls_accuracy"] = ((pred == labels) & fg).sum() / n_fg
+    stats["softmax_classifier/false_negative"] = ((pred == spec.num_known_classes) & fg).sum() / n_fg
+    if mark:
+        mark("heads")
+    return losses, stats

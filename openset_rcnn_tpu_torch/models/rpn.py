@@ -1,22 +1,30 @@
-"""Classification-Free RPN: the head and proposal selection.
+"""Classification-Free RPN: the head, anchor targets, losses and proposal
+selection.
 
-Port of ``openset_rcnn_tpu/models/rpn.py:43-91, 252-285``. The head is a
-shared 3x3 conv + ReLU, a channel L2-normalisation (squared norm summed in
-f32), then 1x1 convs for ltrb anchor deltas and sigmoid centerness. There is
-no objectness classifier. Proposals are the per-level top-k by centerness,
-with no NMS.
+Port of ``openset_rcnn_tpu/models/rpn.py:43-285``. The head is a shared 3x3
+conv + ReLU, a channel L2-normalisation (squared norm summed in f32), then
+1x1 convs for ltrb anchor deltas and sigmoid centerness. There is no
+objectness classifier. Targets: one IoU+matcher pass (``ops/iou_match.py``,
+a CUDA kernel on the GPU) feeds two matchers (box regression [0.3, 0.7],
+objectness [0.1, 0.3], both with the low-quality rescue), each subsampled on
+its own, and FCOS-style centerness targets. Proposals are the per-level
+top-k by centerness, with no NMS.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.box_transforms import Box2BoxTransformLinear
 from ..ops.boxes import clip_boxes, nonempty
+from ..ops.iou_match import iou_match
+from ..ops.losses import dense_box_regression_loss, masked_sum, smooth_l1
+from ..ops.sampling import draw_uniforms, subsample_labels
+from ..ops.targets import centerness_targets
 from ..ops.topk import stable_topk
-from ..structures import Proposals
+from ..structures import GroundTruth, Proposals
 
 
 class ClsFreeRPNHead(nn.Module):
@@ -50,6 +58,84 @@ class ClsFreeRPNHead(nn.Module):
             nn.init.normal_(m.weight, std=0.01, generator=generator)
             nn.init.zeros_(m.bias)
         nn.init.constant_(self.anchor_deltas.bias, self.delta_bias_init)
+
+
+class RPNTargets(NamedTuple):
+    reg_labels: torch.Tensor     # (B, R) int32 in {-1, 0, 1} after sampling
+    matched_boxes: torch.Tensor  # (B, R, 4)
+    obj_labels: torch.Tensor     # (B, R) int32 in {-1, 0, 1} after sampling
+    gt_centerness: torch.Tensor  # (B, R)
+
+
+def _bin_labels(max_iou: torch.Tensor, rescued: torch.Tensor, thresholds: Sequence[float]) -> torch.Tensor:
+    """3-bin matcher labels {0, -1, 1} from the fused matcher's outputs
+    (``ops/matcher.py::match`` with labels [0, -1, 1] and the rescue; images
+    without GT fall out as all 0 because their max_iou is -1)."""
+    out = torch.zeros(max_iou.shape, dtype=torch.int32, device=max_iou.device)
+    out = torch.where(max_iou >= thresholds[0], torch.full_like(out, -1), out)
+    out = torch.where(max_iou >= thresholds[1], torch.ones_like(out), out)
+    return torch.where(rescued, torch.ones_like(out), out)
+
+
+def rpn_targets(
+    anchors: torch.Tensor,
+    gt: GroundTruth,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+    objectness_positive_fraction: float = 1.0,
+    reg_thresholds: Sequence[float] = (0.3, 0.7),
+    obj_thresholds: Sequence[float] = (0.1, 0.3),
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RPNTargets:
+    """Anchor targets for (R, 4) anchors and padded GT.
+
+    ``uniforms`` (B, 2, 2, R): the sampling draws per image, [regression,
+    objectness] x [positives, negatives] (the JAX key tree per image:
+    split -> (k_reg, k_obj), each split -> (kp, kn)); drawn from
+    ``generator`` when None.
+    """
+    m = iou_match(anchors, gt.boxes, gt.valid)
+    if uniforms is None:
+        uniforms = draw_uniforms((gt.boxes.shape[0], 2, 2, anchors.shape[0]), anchors.device, generator)
+    reg_labels = subsample_labels(_bin_labels(m.max_iou, m.rescued, reg_thresholds),
+                                  batch_size_per_image, positive_fraction, uniforms=uniforms[:, 0])
+    obj_labels = subsample_labels(_bin_labels(m.max_iou, m.rescued, obj_thresholds),
+                                  batch_size_per_image, objectness_positive_fraction, uniforms=uniforms[:, 1])
+    gt_ctr = centerness_targets(anchors[None], m.matched_boxes, obj_labels)
+    return RPNTargets(reg_labels, m.matched_boxes, obj_labels, gt_ctr)
+
+
+def rpn_losses(
+    anchors: torch.Tensor,
+    pred_deltas: torch.Tensor,      # (B, R, 4)
+    pred_centerness: torch.Tensor,  # (B, R)
+    targets: RPNTargets,
+    transform: Box2BoxTransformLinear,
+    batch_size_per_image: int = 256,
+    loc_weight: float = 1.0,
+    ctr_weight: float = 1.0,
+    box_reg_loss_type: str = "iou",
+    ctr_smooth_l1_beta: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """IoU-family loss on sampled positives + L1 centerness on sampled
+    positives and negatives, both over (batch_size_per_image * B)."""
+    pos = targets.reg_labels == 1
+    if box_reg_loss_type in ("iou", "giou", "diou", "ciou"):
+        pred_boxes = transform.apply_deltas(pred_deltas, anchors[None])
+        loc_loss = dense_box_regression_loss(pred_boxes, targets.matched_boxes, pos, box_reg_loss_type)
+    elif box_reg_loss_type == "smooth_l1":
+        gt_deltas = transform.get_deltas(anchors[None], targets.matched_boxes)
+        loc_loss = masked_sum(smooth_l1(pred_deltas, gt_deltas, 0.0), pos)
+    else:
+        raise ValueError(box_reg_loss_type)
+    ctr_loss = masked_sum(smooth_l1(pred_centerness, targets.gt_centerness, ctr_smooth_l1_beta),
+                          targets.obj_labels != -1)
+    normalizer = batch_size_per_image * pred_deltas.shape[0]
+    return {
+        "loss_rpn_loc": loc_weight * loc_loss / normalizer,
+        "loss_rpn_ctr": ctr_weight * ctr_loss / normalizer,
+    }
 
 
 def select_proposals(

@@ -8,7 +8,7 @@ and flags, so an edited source is rebuilt and never served stale.
 
 There is no fast math: ``--fmad=false`` keeps every multiply and add rounded
 on its own, as the plain PyTorch versions compute them, so the NMS keep
-masks match exactly.
+masks and the IoU matcher's outputs match exactly.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("roi_align_fwd", "nms_keep")
+KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",

@@ -14,6 +14,13 @@ kernel's level bump for boxes of aspect ratio above ~3.6 is not reproduced.
   small at ~4.3k RoIs per image. The CPU path and the kernel's oracle.
 * ``roi_align`` is the wrapper: plain version for CPU tensors, the CUDA kernel
   (``csrc/roi_align_fwd.cu``) for CUDA tensors. There is no fallback.
+* The backward (port of the custom VJP at ``ops/roi_align.py:402-437``):
+  ``roi_align_bwd_plain`` transposes the gather path with an explicit f32
+  ``index_add_``; ``roi_align_bwd`` is its wrapper, with the CUDA kernel
+  ``csrc/roi_align_bwd.cu`` for CUDA tensors. Both return per-level f32
+  accumulators. ``RoIAlignFunction`` joins the two wrappers into one
+  differentiable op; its backward rounds the accumulators to the features'
+  dtype, as the JAX VJP does, and gives the boxes no gradient.
 
 Layout: features are per-level NHWC (B, H_l, W_l, C) bf16; boxes (B, R, 4)
 xyxy f32 in image coordinates; the output is (B, R, P, P, C) f32, the JAX
@@ -22,7 +29,7 @@ package's layout, so a flatten of the last three dims matches its ``fc1``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -82,25 +89,36 @@ def roi_align_plain(
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
     P, S = out_size, sampling_ratio
-    dev = boxes.device
     # one flat (B * sum_l H_l W_l, C) buffer: image-major, then level, then row
     flat = torch.cat([f.reshape(B, -1, C) for f in feats], dim=1).reshape(-1, C)
-    sizes = [f.shape[1] * f.shape[2] for f in feats]
+    out = torch.empty((B * R, P, P, C), dtype=torch.float32, device=boxes.device)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    for sl, n, neighbours, ok in _chunk_geometry(boxes, levels, level_hw, strides, P, S, chunk):
+        val = sum(flat[idx.reshape(-1)].reshape(n, P * S, P * S, C).float() * w[..., None] for idx, w in neighbours)
+        out[sl] = (val * ok[..., None]).reshape(n, P, S, P, S, C).mean(dim=(2, 4))
+    return out.reshape(B, R, P, P, C)
+
+
+def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int):
+    """Per chunk of RoIs, the sample geometry of the gather path: (slice of
+    the flattened RoIs, RoI count, the 4 bilinear neighbours as (flat row
+    index (n, PS, PS), weight (n, PS, PS)), in-range mask (n, PS, PS)).
+    Flat rows index one (B * sum_l H_l W_l) buffer, image-major, then level."""
+    B, R = boxes.shape[:2]
+    dev = boxes.device
+    sizes = [h * w for h, w in level_hw]
     per_image = sum(sizes)
     offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
-    hs = torch.tensor([f.shape[1] for f in feats], dtype=torch.float32, device=dev)
-    ws = torch.tensor([f.shape[2] for f in feats], dtype=torch.float32, device=dev)
+    hs = torch.tensor([h for h, _ in level_hw], dtype=torch.float32, device=dev)
+    ws = torch.tensor([w for _, w in level_hw], dtype=torch.float32, device=dev)
     inv_strides = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
-
     flat_boxes = boxes.reshape(-1, 4)
     flat_levels = levels.reshape(-1).long()
     image = torch.arange(B, device=dev).repeat_interleave(R)
-    out = torch.empty((B * R, P, P, C), dtype=torch.float32, device=dev)
     for start in range(0, B * R, chunk):
         sl = slice(start, min(start + chunk, B * R))
         bx = flat_boxes[sl]
         lvl = flat_levels[sl]
-        n = bx.shape[0]
         scale = inv_strides[lvl]
         H, W = hs[lvl], ws[lvl]
         y0, y1, ly, oky = _sample_axis(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P, S)
@@ -108,23 +126,16 @@ def roi_align_plain(
         base = (image[sl] * per_image + offsets[lvl])[:, None, None]
         Wl = W.long()[:, None, None]
 
-        def gather(yy, xx):
-            idx = base + yy[:, :, None] * Wl + xx[:, None, :]
-            return flat[idx.reshape(-1)].reshape(n, P * S, P * S, C).float()
+        def idx(yy, xx):
+            return base + yy[:, :, None] * Wl + xx[:, None, :]
 
-        w00 = (1 - ly)[:, :, None] * (1 - lx)[:, None, :]
-        w01 = (1 - ly)[:, :, None] * lx[:, None, :]
-        w10 = ly[:, :, None] * (1 - lx)[:, None, :]
-        w11 = ly[:, :, None] * lx[:, None, :]
-        ok = oky[:, :, None] * okx[:, None, :]
-        val = (
-            gather(y0, x0) * w00[..., None]
-            + gather(y0, x1) * w01[..., None]
-            + gather(y1, x0) * w10[..., None]
-            + gather(y1, x1) * w11[..., None]
-        ) * ok[..., None]
-        out[sl] = val.reshape(n, P, S, P, S, C).mean(dim=(2, 4))
-    return out.reshape(B, R, P, P, C)
+        neighbours = (
+            (idx(y0, x0), (1 - ly)[:, :, None] * (1 - lx)[:, None, :]),
+            (idx(y0, x1), (1 - ly)[:, :, None] * lx[:, None, :]),
+            (idx(y1, x0), ly[:, :, None] * (1 - lx)[:, None, :]),
+            (idx(y1, x1), ly[:, :, None] * lx[:, None, :]),
+        )
+        yield sl, bx.shape[0], neighbours, oky[:, :, None] * okx[:, None, :]
 
 
 _SIGNATURE = {
@@ -195,3 +206,130 @@ def roi_align(
 
 
 roi_align.launches = 0  # kernel launches since the last reset
+
+
+# ---------------------------------------------------------------- backward
+
+
+def roi_align_bwd_plain(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+    chunk: int = PLAIN_CHUNK,
+) -> List[torch.Tensor]:
+    """d(features) of ``roi_align_plain`` for the cotangent ``grad``
+    (B, R, P, P, C): per-level (B, H_l, W_l, C) f32 accumulators.
+
+    The transpose of the gather path, written out: each bilinear neighbour
+    receives (cotangent / count) * in_range * weight through an f32
+    ``index_add_``, with the forward's weights, so no bf16 rounding enters
+    the sums (autograd through bf16 indexing would accumulate in bf16)."""
+    B, R = boxes.shape[:2]
+    C = grad.shape[-1]
+    P, S = out_size, sampling_ratio
+    per_image = sum(h * w for h, w in level_hw)
+    flat = torch.zeros((B * per_image, C), dtype=torch.float32, device=grad.device)
+    g = grad.reshape(B * R, P, P, C).float()
+    count = torch.full((), float(S * S), device=grad.device)  # a tensor divisor, as the forward's mean
+    for sl, n, neighbours, ok in _chunk_geometry(boxes, levels, level_hw, strides, P, S, chunk):
+        gs = (g[sl] / count)[:, :, None, :, None, :].expand(n, P, S, P, S, C).reshape(n, P * S, P * S, C)
+        d = gs * ok[..., None]
+        for idx, w in neighbours:
+            flat.index_add_(0, idx.reshape(-1), (d * w[..., None]).reshape(-1, C))
+    flat = flat.reshape(B, per_image, C)
+    out, start = [], 0
+    for h, w in level_hw:
+        out.append(flat[:, start : start + h * w].reshape(B, h, w, C))
+        start += h * w
+    return out
+
+
+_SIGNATURE_BWD = {
+    "roi_align_bwd": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 4
+    + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+}
+
+
+def roi_align_bwd(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> List[torch.Tensor]:
+    """RoIAlignV2 backward: per-level (B, H_l, W_l, C) f32 accumulators from
+    the (B, R, P, P, C) f32 cotangent.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd runs on CPU or CUDA tensors, not {boxes.device}")
+    P, S = out_size, sampling_ratio
+    if len(level_hw) != NUM_LEVELS or len(strides) != NUM_LEVELS:
+        raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(level_hw)}")
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, R, 4) float32, got {tuple(boxes.shape)} {boxes.dtype}")
+    B, R = boxes.shape[:2]
+    if levels.dtype != torch.int32 or tuple(levels.shape) != (B, R):
+        raise ValueError(f"levels must be ({B}, {R}) int32, got {tuple(levels.shape)} {levels.dtype}")
+    if grad.dtype != torch.float32 or grad.dim() != 5 or tuple(grad.shape[:4]) != (B, R, P, P):
+        raise ValueError(f"grad must be ({B}, {R}, {P}, {P}, C) float32, got {tuple(grad.shape)} {grad.dtype}")
+    for t in (grad, boxes, levels):
+        if t.device != boxes.device:
+            raise ValueError("grad, boxes and levels must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("grad, boxes and levels must be contiguous")
+    if S < 1 or P * S > 32:
+        raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
+    C = grad.shape[-1]
+    accs = [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
+    if B * R == 0:
+        return accs
+    lib = _build.load("roi_align_bwd", _SIGNATURE_BWD)
+    hw = [d for h, w in level_hw for d in (h, w)]
+    with torch.cuda.device(boxes.device):
+        code = lib.roi_align_bwd(
+            *[a.data_ptr() for a in accs], *hw, *[1.0 / s for s in strides],
+            boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), B * R, R, C, P, S,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, "roi_align_bwd", code)
+    roi_align_bwd.launches += 1
+    return accs
+
+
+roi_align_bwd.launches = 0  # kernel launches since the last reset
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Differentiable multilevel RoIAlign: ``roi_align`` forward,
+    ``roi_align_bwd`` backward, the accumulators rounded to the features'
+    dtype. It saves the boxes, the levels and the level shapes, not the
+    features. Call as ``RoIAlignFunction.apply(boxes, levels, strides,
+    out_size, sampling_ratio, *feats)``."""
+
+    @staticmethod
+    def forward(ctx, boxes, levels, strides, out_size, sampling_ratio, *feats):
+        ctx.save_for_backward(boxes, levels)
+        ctx.args = (tuple(strides), out_size, sampling_ratio, [(f.shape[1], f.shape[2]) for f in feats],
+                    feats[0].dtype)
+        return roi_align(list(feats), boxes, levels, strides, out_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, levels = ctx.saved_tensors
+        strides, out_size, sampling_ratio, level_hw, dtype = ctx.args
+        accs = roi_align_bwd(grad.contiguous(), boxes, levels, level_hw, strides, out_size, sampling_ratio)
+        return (None,) * 5 + tuple(a.to(dtype) for a in accs)

@@ -6,16 +6,25 @@ These need an NVIDIA GPU and skip without one. On a machine with the card
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
 The plain versions themselves are held against the JAX package on the CPU
-(tests/test_torch_port_ops.py).
+(tests/test_torch_port_ops.py, tests/test_torch_port_train_ops.py).
 """
 import pytest
 import torch
 
+from openset_rcnn_tpu_torch.ops.iou_match import iou_match, iou_match_plain
 from openset_rcnn_tpu_torch.ops.nms import nms_keep, nms_keep_plain
-from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
+from openset_rcnn_tpu_torch.ops.roi_align import (
+    RoIAlignFunction,
+    assign_levels,
+    roi_align,
+    roi_align_bwd,
+    roi_align_bwd_plain,
+    roi_align_plain,
+)
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
+BWD_TOL = 1e-5  # RoIAlign backward, scaled by max(1, max|want|): atomics reorder the f32 sums
 
 
 @pytest.fixture
@@ -95,3 +104,110 @@ def test_nms_kernel_rejects_what_it_does_not_take(dev):
         nms_keep(boxes, valid.float(), 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         nms_keep(boxes.transpose(0, 1).contiguous().transpose(0, 1), valid, 0.5)
+
+
+def iou_inputs(dev, B, G, R, seed=0):
+    """Anchors and padded GT with integer corners among them (exact IoU
+    ties), a zero-area GT, a duplicate GT row and, for B > 1, a last image
+    without valid GT."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)
+
+    def boxes(*shape, lo, hi):
+        xy = u(*shape, 2) * 1000.0
+        return torch.cat([xy, xy + lo + u(*shape, 2) * (hi - lo)], -1)
+
+    anchors = boxes(R, lo=8.0, hi=400.0)
+    anchors[::2] = anchors[::2].round()
+    gt = boxes(B, G, lo=20.0, hi=400.0)
+    gt[0] = gt[0].round()
+    valid = u(B, G) > 0.3
+    valid[0] = True
+    if G > 2:
+        gt[0, 1] = torch.tensor([100.0, 100.0, 100.0, 160.0], device=dev)  # zero area
+        gt[0, 2] = gt[0, 3]
+    if B > 1:
+        valid[-1] = False
+    return anchors.contiguous(), gt.contiguous(), valid
+
+
+@pytest.mark.parametrize("B,G,R", [(1, 1, 1000), (2, 1, 4097), (3, 37, 20000), (4, 100, 93093)])
+def test_iou_match_kernel_matches_plain(dev, B, G, R):
+    anchors, gt, valid = iou_inputs(dev, B, G, R, seed=G + R)
+    before = iou_match.launches
+    got = iou_match(anchors, gt, valid)
+    torch.cuda.synchronize()
+    assert iou_match.launches == before + 2
+    want = iou_match_plain(anchors, gt, valid)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert want.rescued[0].any()
+    if B > 1:
+        assert (got.max_iou[-1] == -1).all() and not got.rescued[-1].any()
+
+
+def test_iou_match_kernel_rejects_what_it_does_not_take(dev):
+    anchors, gt, valid = iou_inputs(dev, 2, 5, 64)
+    with pytest.raises(ValueError, match="float32"):
+        iou_match(anchors.double(), gt, valid)
+    with pytest.raises(ValueError, match="bool"):
+        iou_match(anchors, gt, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="contiguous"):
+        iou_match(anchors.t().contiguous().t(), gt, valid)
+    big, big_valid = iou_inputs(dev, 1, 1025, 64)[1:]
+    with pytest.raises(ValueError, match="1 to 1024"):
+        iou_match(anchors, big, big_valid)
+
+
+def bwd_inputs(dev, B, R, C, seed):
+    feats, boxes = roi_inputs(dev, B, R, C, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cot = torch.randn(B, R, 7, 7, C, generator=g, device=dev)
+    return feats, boxes, assign_levels(boxes), cot
+
+
+def assert_bwd_close(got, want, rtol=0.0):
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w, atol=BWD_TOL * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("C", [256, 200, 32])
+def test_roi_align_bwd_kernel_matches_plain(dev, C):
+    feats, boxes, levels, cot = bwd_inputs(dev, 3, 301, C, seed=C)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    before = roi_align_bwd.launches
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_bwd.launches == before + 1
+    assert all(a.dtype == torch.float32 and a.shape == (3, h, w, C) for a, (h, w) in zip(got, level_hw))
+    assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES))
+
+
+def test_roi_align_bwd_kernel_rejects_what_it_does_not_take(dev):
+    feats, boxes, levels, cot = bwd_inputs(dev, 1, 8, 32, seed=0)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    with pytest.raises(ValueError, match="float32"):
+        roi_align_bwd(cot.double(), boxes, levels, level_hw, STRIDES)
+    with pytest.raises(ValueError, match="int32"):
+        roi_align_bwd(cot, boxes, levels.long(), level_hw, STRIDES)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_bwd(cot.transpose(2, 3), boxes, levels, level_hw, STRIDES)
+
+
+def test_roi_align_function_runs_both_kernels(dev):
+    """Autograd through RoIAlignFunction: one forward and one backward
+    launch; bf16 feature gradients within one bf16 rounding of the plain
+    backward; no gradient for the boxes."""
+    feats, boxes, levels, cot = bwd_inputs(dev, 2, 150, 64, seed=7)
+    feats = [f.requires_grad_(True) for f in feats]
+    fwd, bwd = roi_align.launches, roi_align_bwd.launches
+    out = RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, *feats)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (roi_align.launches, roi_align_bwd.launches) == (fwd + 1, bwd + 1)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    want = roi_align_bwd_plain(cot, boxes.detach(), levels, level_hw, STRIDES)
+    assert all(f.grad.dtype == torch.bfloat16 for f in feats)
+    assert_bwd_close([f.grad for f in feats], want, rtol=2.0**-8)
+    assert boxes.grad is None

@@ -27,5 +27,5 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 17, out.stdout
+    assert int(n_modules) >= 33, out.stdout
     assert bad == "", f"the port loaded {bad}"

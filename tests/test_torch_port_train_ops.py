@@ -1,0 +1,494 @@
+"""Training ops of the PyTorch port against the JAX package, on the CPU.
+
+Matcher, samplers, centerness targets, losses, the fused IoU+matcher (K3)
+and the RoIAlign backward (K2) plain versions, RPN targets, ROI proposal
+sampling and the optimizer. The samplers get the very uniforms JAX draws:
+the tests rebuild the JAX key tree and hand the draws to the port. Floats
+agree within a tolerance scaled to their magnitude; labels, indices and
+masks exactly. The CUDA kernels themselves are held against the plain
+versions on the GPU (tests/test_torch_port_cuda.py, chip_smoke.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openset_rcnn_tpu.config import get_default_cfg as jax_cfg
+from openset_rcnn_tpu.engine import optimizer as jax_opt
+from openset_rcnn_tpu.models import detector as jax_det
+from openset_rcnn_tpu.models import roi_heads as jax_heads
+from openset_rcnn_tpu.models import rpn as jax_rpn
+from openset_rcnn_tpu.ops import losses as jax_losses
+from openset_rcnn_tpu.ops import matcher as jax_matcher
+from openset_rcnn_tpu.ops import roi_align as jax_roi
+from openset_rcnn_tpu.ops import sampling as jax_sampling
+from openset_rcnn_tpu.ops import targets as jax_targets
+from openset_rcnn_tpu.ops.boxes import pairwise_iou as jax_pairwise_iou
+from openset_rcnn_tpu.ops.pallas.iou_match_kernel import iou_match_pallas
+from openset_rcnn_tpu.ops.pallas.roi_align_v2 import roi_align_pallas_v2_bwd
+from openset_rcnn_tpu.structures import GroundTruth as JaxGT
+from openset_rcnn_tpu.structures import Proposals as JaxProposals
+from openset_rcnn_tpu_torch.config import get_default_cfg as port_cfg
+from openset_rcnn_tpu_torch.engine import optimizer as port_opt
+from openset_rcnn_tpu_torch.models import detector as port_det
+from openset_rcnn_tpu_torch.models import roi_heads as port_heads
+from openset_rcnn_tpu_torch.models import rpn as port_rpn
+from openset_rcnn_tpu_torch.ops import iou_match as port_iou_match
+from openset_rcnn_tpu_torch.ops import losses as port_losses
+from openset_rcnn_tpu_torch.ops import matcher as port_matcher
+from openset_rcnn_tpu_torch.ops import roi_align as port_roi
+from openset_rcnn_tpu_torch.ops import sampling as port_sampling
+from openset_rcnn_tpu_torch.ops import targets as port_targets
+from openset_rcnn_tpu_torch.structures import GroundTruth as PortGT
+from openset_rcnn_tpu_torch.structures import Proposals as PortProposals
+
+STRIDES = (4, 8, 16, 32)
+LEVEL_HW = [(64, 96), (32, 48), (16, 24), (8, 12)]  # a 256 x 384 canvas
+IMG_H, IMG_W = 256, 384
+
+
+def assert_close(got, want, tol):
+    """|got - want| <= tol * max(1, max|want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def uniforms(key, n, count):
+    """The draws of ``jax.random.split(key, count)``'s keys, (count, n)."""
+    if count == 2:
+        keys = jax.random.split(key)
+    else:
+        keys = jax.random.split(key, count)
+    return np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in keys])
+
+
+def rpn_uniforms(rpn_key, B, R):
+    """(B, 2, 2, R): per image split -> (k_reg, k_obj), each split -> (kp, kn)
+    (models/rpn.py:127, ops/sampling.py:68)."""
+    out = []
+    for k in jax.random.split(rpn_key, B):
+        k_reg, k_obj = jax.random.split(k)
+        out.append([uniforms(k_reg, R, 2), uniforms(k_obj, R, 2)])
+    return np.asarray(out, np.float32)
+
+
+def roi_uniforms(roi_key, B, N):
+    """(B, 3, N): per image split(., 3) -> (kp, kn, kt) (ops/sampling.py:104)."""
+    return np.asarray([uniforms(k, N, 3) for k in jax.random.split(roi_key, B)], np.float32)
+
+
+def integer_boxes(rng, shape, hi=80, wmax=40):
+    """Integer corners: many IoUs tie exactly."""
+    xy = rng.randint(0, hi, shape + (2,))
+    wh = rng.randint(1, wmax, shape + (2,))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def anchors_64x96():
+    spec = port_det.ModelSpec.from_cfg(load_port_cfg())
+    anchors, _ = port_det.compute_anchors(spec, (64, 96))
+    return anchors
+
+
+def load_port_cfg():
+    cfg = port_cfg()
+    cfg.OPENDET_BENCHMARK = True
+    return cfg
+
+
+def make_gt(rng, B, G):
+    """Padded GT on a 64 x 96 canvas: integer corners, one image without
+    valid GT, one zero-area GT, and a duplicate GT row."""
+    boxes = integer_boxes(rng, (B, G), hi=60, wmax=36)
+    boxes[0, 1] = [20.0, 20.0, 20.0, 30.0]  # zero area
+    boxes[0, 2] = boxes[0, 3]               # duplicate: ties between GT rows
+    valid = rng.rand(B, G) > 0.25
+    valid[0, :4] = True
+    valid[-1] = False                       # an image without GT
+    classes = rng.randint(0, 81, (B, G)).astype(np.int32)
+    classes[0, :3] = [3, 7, 25]             # known, known, unknown
+    return boxes, classes, valid
+
+
+# ------------------------------------------------------------- matcher
+
+
+@pytest.mark.parametrize("rescue", [True, False])
+def test_match_matches_jax(rng, rescue):
+    G, N = 7, 300
+    gt = integer_boxes(rng, (G,))
+    cand = integer_boxes(rng, (N,))
+    iou = np.asarray(jax_pairwise_iou(jnp.asarray(gt), jnp.asarray(cand)))
+    for valid in (rng.rand(G) > 0.3, np.zeros(G, bool)):
+        want = jax_matcher.match(jnp.asarray(iou), jnp.asarray(valid), [0.3, 0.7], [0, -1, 1], rescue)
+        got = port_matcher.match(t(iou), t(valid), [0.3, 0.7], [0, -1, 1], rescue)
+        np.testing.assert_array_equal(got.matched_idx.numpy(), np.asarray(want.matched_idx))
+        np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    assert rescue == (np.asarray(want.labels) == 1).any() or not valid.any()
+
+
+# ------------------------------------------------------------ samplers
+
+
+@pytest.mark.parametrize("n_pos", [3, 400])  # under and over the positive quota
+def test_subsample_labels_matches_jax(rng, n_pos):
+    N = 2000
+    labels = np.full(N, -1, np.int32)
+    idx = rng.permutation(N)
+    labels[idx[:n_pos]] = 1
+    labels[idx[n_pos : n_pos + 900]] = 0
+    key = jax.random.PRNGKey(n_pos)
+    u = uniforms(key, N, 2)
+    u[:, ::7] = u[:, :1]  # tied draws: the lower index must win, as in lax.top_k
+    # draws can only be fed to JAX through its key, so compare the port on
+    # JAX's own draws, and on tied draws against a numpy rendering of JAX's rule
+    want = jax_sampling.subsample_labels(jnp.asarray(labels), 256, 0.5, key)
+    got = port_sampling.subsample_labels(t(labels), 256, 0.5, uniforms=t(uniforms(key, N, 2)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() == 1).sum() == min(n_pos, 128) and (got.numpy() == 0).sum() == 256 - min(n_pos, 128)
+    tied = port_sampling.subsample_labels(t(labels), 256, 0.5, uniforms=t(u))
+    for cls, quota, draws in ((1, min(n_pos, 128), u[0]), (0, 256 - min(n_pos, 128), u[1])):
+        members = np.flatnonzero(labels == cls)
+        order = members[np.lexsort((members, -draws[members]))][:quota]  # draw descending, index ascending
+        np.testing.assert_array_equal(np.flatnonzero(tied.numpy() == cls), np.sort(order))
+
+
+def test_sample_balanced_indices_matches_jax(rng):
+    N = 700
+    pos = rng.rand(N) < 0.1
+    neg = ~pos & (rng.rand(N) < 0.5)
+    for p, n in ((pos, neg), (pos & (np.arange(N) < 100), neg & (np.arange(N) < 200))):  # short of 512
+        key = jax.random.PRNGKey(int(p.sum()))
+        want = jax_sampling.sample_balanced_indices(jnp.asarray(p), jnp.asarray(n), 512, 0.25, key)
+        # batched over a leading dim of 2 (the same image twice)
+        u = t(np.stack([uniforms(key, N, 3)] * 2))
+        got = port_sampling.sample_balanced_indices(t(np.stack([p, p])), t(np.stack([n, n])), 512, 0.25, uniforms=u)
+        for field in ("indices", "is_pos", "valid"):
+            for b in range(2):
+                np.testing.assert_array_equal(getattr(got, field)[b].numpy(), np.asarray(getattr(want, field)))
+    assert not np.asarray(want.valid).all()
+
+
+def test_samplers_draw_from_a_generator(rng):
+    labels = t(rng.randint(-1, 2, (2, 1000)).astype(np.int32))
+    a = port_sampling.subsample_labels(labels, 256, 0.5, generator=torch.Generator().manual_seed(5))
+    b = port_sampling.subsample_labels(labels, 256, 0.5, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(a, b) and ((a == 1).sum(1) == 128).all() and ((a == 0).sum(1) == 128).all()
+
+
+# -------------------------------------------------------- targets, losses
+
+
+def test_centerness_targets_match_jax(rng):
+    anchors = integer_boxes(rng, (3, 200))
+    gt = integer_boxes(rng, (3, 200))
+    labels = rng.randint(-1, 2, (3, 200)).astype(np.int32)
+    got = port_targets.centerness_targets(t(anchors), t(gt), t(labels))
+    want = jax_targets.centerness_targets(jnp.asarray(anchors), jnp.asarray(gt), jnp.asarray(labels))
+    assert_close(got, want, 1e-6)
+    assert (np.asarray(want) > 0).any() and (np.asarray(want) == 0).any()
+
+
+@pytest.mark.parametrize("loss_type", ["iou", "giou", "diou", "ciou"])
+def test_box_losses_and_gradients_match_jax(rng, loss_type):
+    pred = (integer_boxes(rng, (4, 60)) + rng.uniform(-3, 3, (4, 60, 4))).astype(np.float32)
+    gt = integer_boxes(rng, (4, 60))
+    fg = rng.rand(4, 60) > 0.4
+    jfn = lambda p: jax_losses.dense_box_regression_loss(p, jnp.asarray(gt), jnp.asarray(fg), loss_type)
+    want, want_grad = jax.value_and_grad(jfn)(jnp.asarray(pred))
+    p = t(pred).requires_grad_(True)
+    got = port_losses.dense_box_regression_loss(p, t(gt), t(fg), loss_type)
+    got.backward()
+    assert_close(got.detach(), want, 1e-6)
+    assert_close(p.grad, want_grad, 1e-5)
+    with pytest.raises(ValueError):
+        port_losses.dense_box_regression_loss(p, t(gt), t(fg), "l2")
+
+
+def test_smooth_l1_masked_sum_and_cross_entropy_match_jax(rng):
+    a, b = rng.randn(5, 30).astype(np.float32), rng.randn(5, 30).astype(np.float32)
+    for beta in (0.0, 0.5):
+        assert_close(port_losses.smooth_l1(t(a), t(b), beta), jax_losses.smooth_l1(a, b, beta), 1e-6)
+    mask = rng.rand(5) > 0.5
+    assert_close(port_losses.masked_sum(t(a), t(mask)), jax_losses.masked_sum(a, mask), 1e-6)
+    logits = (rng.randn(3, 40, 21) * 4).astype(np.float32)
+    labels = rng.randint(0, 21, (3, 40)).astype(np.int32)
+    valid = rng.rand(3, 40) > 0.3
+    jfn = lambda lg: jax_losses.softmax_cross_entropy(lg, jnp.asarray(labels), jnp.asarray(valid))
+    want, want_grad = jax.value_and_grad(jfn)(jnp.asarray(logits))
+    lg = t(logits).requires_grad_(True)
+    got = port_losses.softmax_cross_entropy(lg, t(labels), t(valid))
+    got.backward()
+    assert_close(got.detach(), want, 1e-6)
+    assert_close(lg.grad, want_grad, 1e-6)
+
+
+# ------------------------------------------------- K3: fused IoU + matcher
+
+
+def test_iou_match_plain_matches_xla_and_pallas(rng):
+    """Against rpn.py::_match_one_image (XLA) bitwise, and against the TPU
+    kernel in interpret mode: indices, rescue flags and matched boxes
+    exactly; max_iou bitwise (the kernel's max(union, 1e-12) only differs
+    from the XLA form for unions in (0, 1e-12), which these inputs lack)."""
+    anchors = anchors_64x96()
+    anchors[::5] = np.round(anchors[::5])  # integer anchors against integer GT: exact IoU ties
+    B, G = 4, 9
+    gt, _, valid = make_gt(rng, B, G)
+    got = port_iou_match.iou_match(t(anchors), t(gt), t(valid))
+    assert got.matched_idx.dtype == torch.int32 and got.rescued.dtype == torch.bool
+    kernel = [np.asarray(x) for x in iou_match_pallas(jnp.asarray(anchors), jnp.asarray(gt), jnp.asarray(valid),
+                                                      interpret=True)]
+    for b in range(B):
+        max_iou, idx, rescued = (np.asarray(x) for x in jax_rpn._match_one_image(
+            jnp.asarray(anchors), jnp.asarray(gt[b]), jnp.asarray(valid[b])))
+        np.testing.assert_array_equal(got.max_iou[b].numpy(), max_iou)
+        np.testing.assert_array_equal(got.matched_idx[b].numpy(), idx)
+        np.testing.assert_array_equal(got.rescued[b].numpy(), rescued)
+        np.testing.assert_array_equal(got.matched_boxes[b].numpy(), gt[b][idx])
+    for got_x, want_x in zip(got, kernel):
+        np.testing.assert_array_equal(got_x.numpy(), want_x)
+    # the inputs reach every case: no GT, ties, rescued anchors below 0.3
+    assert (got.max_iou[-1] == -1).all() and not got.rescued[-1].any()
+    m = got.max_iou[0]
+    assert (got.rescued[0] & (m < 0.3)).any()
+    assert len(torch.unique(m[m > 0])) < int((m > 0).sum())
+
+
+# ---------------------------------------------- K2: RoIAlign backward
+
+
+def roi_boxes(rng, B, R, max_aspect=8.0):
+    """Boxes over all four levels, across the image edge, tiny and with
+    aspect ratio up to ``max_aspect``."""
+    n = R // 5
+    side = np.exp(rng.uniform(np.log(8.0), np.log(480.0), (B, R)))
+    ar = rng.uniform(0.6, 1.6, (B, R))
+    ar[:, :n] = rng.uniform(0.7 * max_aspect, max_aspect, (B, n))
+    ar[:, n : 2 * n] = 1.0 / rng.uniform(0.7 * max_aspect, max_aspect, (B, n))
+    w, h = side * np.sqrt(ar), side / np.sqrt(ar)
+    cx, cy = rng.uniform(0, IMG_W, (B, R)), rng.uniform(0, IMG_H, (B, R))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    tiny = boxes[:, 2 * n : 3 * n]
+    tiny[..., 2:] = tiny[..., :2] + rng.uniform(0.05, 1.0, tiny[..., 2:].shape)
+    return boxes.astype(np.float32)
+
+
+def gather_vjp(boxes, g, C):
+    """jax.vjp of the gather path on f32 features: the exact f32 gradient."""
+    feats = tuple(jnp.zeros((boxes.shape[0], h, w, C), jnp.float32) for h, w in LEVEL_HW)
+    f = lambda fs: jax.vmap(lambda fl, bb: jax_roi._multilevel_roi_align_gather(list(fl), bb, STRIDES))(
+        fs, jnp.asarray(boxes))
+    _, vjp = jax.vjp(f, feats)
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))[0]]
+
+
+def test_roi_align_bwd_plain_matches_gather_vjp(rng):
+    B, R, C = 2, 50, 16
+    boxes = roi_boxes(rng, B, R)
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    levels = port_roi.assign_levels(t(boxes))
+    assert set(np.unique(levels.numpy())) == {0, 1, 2, 3}
+    # a chunk that does not divide B * R exercises the chunked loop's edge
+    got = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES, chunk=16)
+    for a, b in zip(got, gather_vjp(boxes, g, C)):
+        assert a.dtype == torch.float32
+        assert_close(a, b, 1e-5)
+    # the wrapper takes the plain version for CPU tensors
+    plain = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES)
+    for a, b in zip(port_roi.roi_align_bwd(t(g), t(boxes), levels, LEVEL_HW, STRIDES), plain):
+        assert torch.equal(a, b)
+
+
+def test_roi_align_bwd_plain_matches_pallas_v2_bwd(rng):
+    """Against the TPU kernel in interpret mode, on boxes below its
+    level-bump bound (aspect < 3.6), at its own test's atol 1e-4."""
+    B, R, C = 2, 12, 32
+    boxes = roi_boxes(rng, B, R, max_aspect=3.0)
+    boxes = np.clip(boxes, 0, np.asarray([IMG_W, IMG_H, IMG_W, IMG_H], np.float32))
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    feats = [jnp.zeros((B, h, w, C), jnp.float32) for h, w in LEVEL_HW]
+    want = roi_align_pallas_v2_bwd(feats, jnp.asarray(boxes), jnp.asarray(g), STRIDES, interpret=True)
+    got = port_roi.roi_align_bwd_plain(t(g), t(boxes), port_roi.assign_levels(t(boxes)), LEVEL_HW, STRIDES)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+
+
+def test_roi_align_function_gradient_is_the_plain_backward(rng):
+    """autograd through RoIAlignFunction: the features' gradient is the plain
+    backward rounded to bf16; the boxes get none."""
+    B, R, C = 2, 30, 8
+    boxes = t(roi_boxes(rng, B, R))
+    levels = port_roi.assign_levels(boxes)
+    feats = [torch.randn(B, h, w, C, dtype=torch.float32).to(torch.bfloat16).requires_grad_(True)
+             for h, w in LEVEL_HW]
+    g = torch.from_numpy(rng.randn(B, R, 7, 7, C).astype(np.float32))
+    out = port_roi.RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, *feats)
+    assert torch.equal(out, port_roi.roi_align([f.detach() for f in feats], boxes.detach(), levels, STRIDES))
+    out.backward(g)
+    want = port_roi.roi_align_bwd_plain(g, boxes.detach(), levels, LEVEL_HW, STRIDES)
+    for f, w in zip(feats, want):
+        assert f.grad.dtype == torch.bfloat16
+        assert torch.equal(f.grad, w.to(torch.bfloat16))
+    assert boxes.grad is None
+
+
+# --------------------------------------------- RPN targets, ROI sampling
+
+
+def test_rpn_targets_match_jax(rng):
+    anchors = anchors_64x96()
+    anchors[::5] = np.round(anchors[::5])
+    B, G = 4, 9
+    gt, classes, valid = make_gt(rng, B, G)
+    key = jax.random.PRNGKey(3)
+    want = jax_rpn.rpn_targets(jnp.asarray(anchors), JaxGT(jnp.asarray(gt), jnp.asarray(classes), jnp.asarray(valid)),
+                               key, use_pallas=False)
+    got = port_rpn.rpn_targets(t(anchors), PortGT(t(gt), t(classes), t(valid)),
+                               uniforms=t(rpn_uniforms(key, B, len(anchors))))
+    for field in ("reg_labels", "obj_labels"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
+    np.testing.assert_array_equal(got.matched_boxes.numpy(), np.asarray(want.matched_boxes))
+    assert_close(got.gt_centerness, want.gt_centerness, 1e-6)
+    reg = got.reg_labels.numpy()
+    assert (reg[:-1] == 1).sum(1).min() > 0
+    assert (reg[-1] == 1).sum() == 0 and (reg[-1] == 0).sum() == 256  # no GT: 256 negatives
+    assert ((reg == 0).sum(1) + (reg == 1).sum(1) == 256).all()
+
+
+def test_label_and_sample_proposals_match_jax(rng):
+    B, P, G = 3, 600, 9
+    gt, classes, valid = make_gt(rng, B, G)
+    # proposals near the GT so the foreground is not empty
+    near = gt[:, rng.randint(0, G, P)] + rng.uniform(-6, 6, (B, P, 4)).astype(np.float32)
+    boxes = np.where(rng.rand(B, P, 1) < 0.5, near, integer_boxes(rng, (B, P), hi=60)).astype(np.float32)
+    scores = rng.uniform(0, 1, (B, P)).astype(np.float32)
+    pvalid = rng.rand(B, P) > 0.1
+    key = jax.random.PRNGKey(4)
+    want = jax_heads.label_and_sample_proposals(
+        JaxProposals(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(pvalid)),
+        JaxGT(jnp.asarray(gt), jnp.asarray(classes), jnp.asarray(valid)), key, num_samples=512, num_classes=81)
+    got = port_heads.label_and_sample_proposals(
+        PortProposals(t(boxes), t(scores), t(pvalid)), PortGT(t(gt), t(classes), t(valid)),
+        num_samples=512, num_classes=81, uniforms=t(roi_uniforms(key, B, P + G)))
+    for field in ("gt_classes", "is_fg", "valid"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
+    for field in ("boxes", "scores", "gt_boxes", "ious"):
+        assert_close(getattr(got, field), getattr(want, field), 1e-6)
+    fg = got.is_fg.numpy()
+    assert fg[0].sum() > 0 and fg[-1].sum() == 0 and (~got.valid.numpy()).sum() == 0
+
+
+# ------------------------------------------------------------ model spec
+
+
+def test_spec_id_map_matches_jax_and_unported_options_raise():
+    cfg = load_port_cfg()
+    spec = port_det.ModelSpec.from_cfg(cfg)
+    want = jax_det.opendet_id_map(spec.num_classes, spec.num_known_classes)
+    assert spec.id_map == tuple(int(x) for x in want) and spec.freeze_at == 2
+    cfg.TPU.ROI_ALIGN_BWD = "pallas_bf16"
+    with pytest.raises(NotImplementedError, match="pallas_bf16"):
+        port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg))
+    cfg.OPENDET_BENCHMARK = False
+    with pytest.raises(NotImplementedError, match="data slice"):
+        port_det.ModelSpec.from_cfg(cfg)
+
+
+# ------------------------------------------------------------ optimizer
+
+
+def test_trainable_mask_matches_jax():
+    jcfg = jax_cfg()
+    jcfg.merge_from_file("configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml")
+    spec = jax_det.ModelSpec.from_cfg(jcfg, jax_det.opendet_id_map(81, 20))
+    module = jax_det.OpensetRCNNModule(spec=spec)
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 96, 3))))["params"]
+    model = port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(load_port_cfg()))
+    names = [n for n, _ in model.named_parameters()]
+    for freeze_at in (0, 1, 2, 3):
+        want = {}
+        for path, leaf in jax.tree_util.tree_flatten_with_path(jax_opt.trainable_mask(shapes, freeze_at))[0]:
+            keys = [p.key for p in path]
+            want[".".join(keys[:-1] + ["weight" if keys[-1] == "kernel" else keys[-1]])] = bool(leaf)
+        got = port_opt.trainable_mask(names, freeze_at)
+        assert got == {n: want[n] for n in names}
+        # every JAX leaf the port has no parameter for is a FrozenBN buffer, frozen in JAX too
+        assert not any(v for k, v in want.items() if k not in got)
+
+
+class TinyModel(torch.nn.Module):
+    """Parameters named like the detector's: a frozen stem, a trainable block
+    and a head."""
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.backbone = torch.nn.Module()
+        self.backbone.stem_conv = torch.nn.Module()
+        self.backbone.res3_block0 = torch.nn.Module()
+        self.box_head = torch.nn.Module()
+        for (mod, name), shape in shapes.items():
+            setattr(getattr(self.backbone, mod, None) or getattr(self, mod), name,
+                    torch.nn.Parameter(torch.zeros(shape)))
+
+
+@pytest.mark.parametrize("clip", [None, "value", "norm"])
+def test_sgd_matches_optax(rng, clip):
+    """3 steps across the warm-up's end (WARMUP_ITERS 2) and a decay step
+    (STEPS (2,)), with momentum and weight decay."""
+    def cfg_of(get_default_cfg):
+        cfg = get_default_cfg()
+        cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS, cfg.SOLVER.STEPS = 0.05, 2, (2,)
+        cfg.SOLVER.CLIP_GRADIENTS.ENABLED = clip is not None
+        cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = clip or "value"
+        cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 0.5 if clip == "value" else 2.0
+        return cfg
+
+    jparams = {
+        "backbone": {"stem_conv": {"kernel": rng.randn(3, 4).astype(np.float32)},
+                     "res3_block0": {"kernel": rng.randn(5, 2).astype(np.float32)}},
+        "box_head": {"kernel": rng.randn(6).astype(np.float32), "bias": rng.randn(2).astype(np.float32)},
+    }
+    tx, sched = jax_opt.build_optimizer(cfg_of(jax_cfg), jparams)
+    model = TinyModel({("stem_conv", "weight"): (3, 4), ("res3_block0", "weight"): (5, 2),
+                       ("box_head", "weight"): (6,), ("box_head", "bias"): (2,)})
+    leaves = {"backbone.stem_conv.weight": ("backbone", "stem_conv", "kernel"),
+              "backbone.res3_block0.weight": ("backbone", "res3_block0", "kernel"),
+              "box_head.weight": ("box_head", "kernel"), "box_head.bias": ("box_head", "bias")}
+
+    def leaf(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(t(leaf(jparams, leaves[name])))
+    opt, schedule, trainable = port_opt.build_optimizer(cfg_of(port_cfg), model)
+    assert len(trainable) == 3 and not model.backbone.stem_conv.weight.requires_grad
+    clip_args = (clip, cfg_of(port_cfg).SOLVER.CLIP_GRADIENTS.CLIP_VALUE) if clip else None
+    params = jax.tree.map(jnp.asarray, jparams)
+    state = tx.init(params)
+    for step in range(3):
+        grads = jax.tree.map(lambda x: rng.randn(*x.shape).astype(np.float32) * 2, jparams)
+        updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state, params)
+        params = jax.tree.map(lambda p, u: p + u, params, updates)
+        assert schedule(step) == float(sched(step))
+        for name, p in model.named_parameters():
+            p.grad = t(leaf(grads, leaves[name])) if p.requires_grad else None
+        if clip_args:
+            port_opt.clip_gradients(trainable, *clip_args)
+        for group in opt.param_groups:
+            group["lr"] = schedule(step)
+        opt.step()
+        for name, p in model.named_parameters():
+            want = np.asarray(leaf(params, leaves[name]))
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6, atol=1e-7)
+    assert schedule(0) < schedule(1) < 0.05 and schedule(2) == pytest.approx(0.005)
