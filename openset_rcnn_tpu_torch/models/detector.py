@@ -26,6 +26,8 @@ from ..structures import ImageBatch, RawDetections
 from .fpn import FPN
 from .resnet import ResNet
 from .roi_heads import (
+    ROI_ALIGN_BWD_ACC,
+    ROI_ALIGN_IMPLS,
     BoxHead,
     BoxIouPredictor,
     KnownClassifier,
@@ -98,6 +100,7 @@ class ModelSpec(NamedTuple):
     backbone_name: str
     rpn_delta_bias_init: float
     resnet_depth: int
+    roi_align_impl: str
     roi_align_bwd: str
 
     @staticmethod
@@ -157,6 +160,7 @@ class ModelSpec(NamedTuple):
             backbone_name=m.BACKBONE.NAME,
             rpn_delta_bias_init=m.RPN.get("DELTA_BIAS_INIT", 0.0),
             resnet_depth=m.RESNETS.DEPTH,
+            roi_align_impl=cfg.TPU.ROI_ALIGN_IMPL,
             roi_align_bwd=cfg.TPU.ROI_ALIGN_BWD,
         )
 
@@ -172,32 +176,41 @@ def opendet_id_map(num_classes: int, num_known: int) -> List[int]:
     return out
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class OpensetRCNN(nn.Module):
     """Every parameter of the detector; the functions below do the rest.
 
-    The port runs the R50-FPN trunk in float32 with the static RoIAlign grid
-    and f32 RoIAlign-backward accumulators; the bf16 trunk and accumulators,
-    the adaptive grid and the Swin/ViT backbones are later slices and raise
-    here.
+    The port runs the R50-FPN trunk in float32 or bfloat16
+    (``TPU.DTYPE``; bf16 covers the trunk, FPN, RPN head and box head, with
+    parameters, losses and the other heads in f32, as the JAX module) with
+    the static RoIAlign grid; the adaptive grid and the Swin/ViT backbones
+    are later slices and raise here.
     """
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
         if spec.backbone_name != "build_resnet_fpn_backbone":
             raise NotImplementedError(f"backbone {spec.backbone_name} is not ported yet")
-        if spec.compute_dtype != "float32":
-            raise NotImplementedError(f"compute dtype {spec.compute_dtype} is not ported yet")
+        if spec.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
         if spec.roi_sampling_ratio < 1:
             raise NotImplementedError("the adaptive RoIAlign grid (ROI_SAMPLING_RATIO -1) is not ported yet")
-        if spec.roi_align_bwd == "pallas_bf16":
-            raise NotImplementedError("bf16 RoIAlign-backward accumulators (TPU.ROI_ALIGN_BWD pallas_bf16) "
-                                      "come with the bf16 slice of the port")
+        if spec.roi_align_impl not in ROI_ALIGN_IMPLS:
+            raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {spec.roi_align_impl!r}")
+        if spec.roi_align_bwd not in ROI_ALIGN_BWD_ACC:
+            raise ValueError(f"TPU.ROI_ALIGN_BWD must be one of {tuple(ROI_ALIGN_BWD_ACC)}, "
+                             f"not {spec.roi_align_bwd!r}")
         self.spec = spec
+        dtype = COMPUTE_DTYPES[spec.compute_dtype]
+        head_dtype = None if dtype == torch.float32 else dtype  # the JAX heads' dtype
         num_anchors = len(spec.anchor_aspect_ratios) * len(spec.anchor_sizes[0])
-        self.backbone = ResNet(depth=spec.resnet_depth)
-        self.fpn = FPN(out_channels=256)
-        self.rpn_head = ClsFreeRPNHead(256, num_anchors, spec.rpn_delta_bias_init)
-        self.box_head = BoxHead(in_dim=256 * spec.pooler_resolution**2, fc_dim=spec.fc_dim)
+        self.backbone = ResNet(depth=spec.resnet_depth, compute_dtype=dtype)
+        self.fpn = FPN(out_channels=256, compute_dtype=dtype)
+        self.rpn_head = ClsFreeRPNHead(256, num_anchors, spec.rpn_delta_bias_init, compute_dtype=head_dtype)
+        self.box_head = BoxHead(in_dim=256 * spec.pooler_resolution**2, fc_dim=spec.fc_dim,
+                                compute_dtype=head_dtype)
         self.box_predictor = BoxIouPredictor(spec.fc_dim)
         self.pln = PLNHead(spec.fc_dim, spec.emd_dim, spec.num_known_classes, spec.reps_per_class)
         self.classifier = KnownClassifier(spec.fc_dim, spec.num_known_classes)
@@ -288,7 +301,8 @@ def inference_forward(
     if mark:
         mark("rpn")
     pooled = pool_features(fpn_feats, proposals.boxes, strides=ROI_STRIDES,
-                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio)
+                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio,
+                           impl=spec.roi_align_impl, bwd_impl=spec.roi_align_bwd)
     if mark:
         mark("roi_align")
     deltas, iou, emb, reps, logits = model.roi_heads(pooled)
@@ -365,7 +379,8 @@ def training_losses_and_stats(
     if mark:
         mark("sampling")
     pooled = pool_features(fpn_feats, rois.boxes, strides=ROI_STRIDES,
-                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio)
+                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio,
+                           impl=spec.roi_align_impl, bwd_impl=spec.roi_align_bwd)
     if mark:
         mark("roi_align")
     deltas, iou, emb, reps, logits = model.roi_heads(pooled)

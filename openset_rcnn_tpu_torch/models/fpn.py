@@ -2,7 +2,9 @@
 
 Port of ``openset_rcnn_tpu/models/fpn.py:16-61``: 1x1 lateral convs,
 nearest-neighbour x2 top-down pathway, 3x3 output convs, and P6 as the
-stride-2 subsample of P5 (d2 ``LastLevelMaxPool``). NCHW.
+stride-2 subsample of P5 (d2 ``LastLevelMaxPool``). NCHW. Laterals, the
+top-down sums and the output convs run in ``compute_dtype`` (f32 weights cast
+inside the convs, ``resnet.Conv2d``).
 """
 from __future__ import annotations
 
@@ -12,21 +14,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .resnet import Conv2d
 
 IN_FEATURES = ("res2", "res3", "res4", "res5")
 IN_CHANNELS = (256, 512, 1024, 2048)  # the ResNet stages'
 
 
 class FPN(nn.Module):
-    def __init__(self, out_channels: int = 256):
+    def __init__(self, out_channels: int = 256, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features = IN_FEATURES
+        self.compute_dtype = compute_dtype
         for f, cin in zip(IN_FEATURES, IN_CHANNELS):
-            self.add_module(f"lateral_{f}", nn.Conv2d(cin, out_channels, 1))
-            self.add_module(f"output_{f}", nn.Conv2d(out_channels, out_channels, 3, padding=1))
+            self.add_module(f"lateral_{f}", Conv2d(cin, out_channels, 1))
+            self.add_module(f"output_{f}", Conv2d(out_channels, out_channels, 3, padding=1))
 
     def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        laterals = [getattr(self, f"lateral_{f}")(feats[f]) for f in self.in_features]
+        laterals = [getattr(self, f"lateral_{f}")(feats[f].to(self.compute_dtype)) for f in self.in_features]
         tds = [laterals[-1]]  # top-down, coarsest first
         for lat in laterals[-2::-1]:
             up = F.interpolate(tds[-1], scale_factor=2, mode="nearest")

@@ -33,11 +33,23 @@ class FrozenBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.scale / torch.sqrt(self.var + self.eps)
         b = self.bias - self.mean * w
+        # in x's dtype, as JAX's FrozenBN: f32 buffers would promote a bf16
+        # trunk back to f32
+        w, b = w.to(x.dtype), b.to(x.dtype)
         return x * w[None, :, None, None] + b[None, :, None, None]
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the f32 weight and bias are cast to
+    it (a no-op for f32 inputs), so a bf16 activation runs a bf16 conv."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
 
 
 class BottleneckBlock(nn.Module):
@@ -66,10 +78,11 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns {res2, res3, res4, res5} NCHW feature maps."""
+    """Returns {res2, res3, res4, res5} NCHW feature maps in ``compute_dtype``."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.stem_conv = _conv(3, STEM_CHANNELS, 7, 2)
         self.stem_bn = FrozenBN(STEM_CHANNELS)
         self.stages = []  # [(stage name, [block names])]
@@ -86,6 +99,7 @@ class ResNet(nn.Module):
             out_ch *= 2
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = x.to(self.compute_dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         outputs = {}

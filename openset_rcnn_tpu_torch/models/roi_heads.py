@@ -2,7 +2,8 @@
 losses and raw detections.
 
 Port of ``openset_rcnn_tpu/models/roi_heads.py:45-382``:
-  * ``BoxHead``: flatten + 2x FC-1024 + ReLU;
+  * ``BoxHead``: flatten + 2x FC-1024 + ReLU (in bf16 under a bf16 compute
+    dtype), f32 out;
   * ``BoxIouPredictor``: class-agnostic box deltas + sigmoid IoU;
   * ``PLNHead``: encoder/decoder 1024<->256 and learnable prototypes;
   * ``KnownClassifier``: (K+1)-way linear classifier on reconstructed features;
@@ -10,7 +11,8 @@ Port of ``openset_rcnn_tpu/models/roi_heads.py:45-382``:
     512 balanced samples per image;
   * ``box_iou_losses``, ``pln_loss``, ``classifier_loss``: the ROI losses;
   * ``pool_features``: differentiable RoIAlignV2 7x7 over P2-P5 in bf16,
-    returned in f32;
+    returned in f32, at the gather path's levels or the TPU kernels'
+    window-fit levels (``impl``), with f32 or bf16 backward accumulators;
   * ``raw_detections``: box decoding, objectness, prototype distances, softmax.
 
 Layout: pooled features are (B, S, 7, 7, C), the JAX flatten order, so
@@ -22,13 +24,14 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.box_transforms import Box2BoxTransform
 from ..ops.boxes import clip_boxes, pairwise_iou
 from ..ops.losses import dense_box_regression_loss, masked_sum, smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match
-from ..ops.roi_align import RoIAlignFunction, assign_levels
+from ..ops.roi_align import RoIAlignFunction, assign_levels, assign_levels_window_fit
 from ..ops.sampling import sample_balanced_indices
 from ..structures import GroundTruth, Proposals, RawDetections, SampledRois
 
@@ -39,16 +42,23 @@ def _dense_init(layer: nn.Linear, std: float, generator: torch.Generator) -> Non
 
 
 class BoxHead(nn.Module):
-    """FastRCNNConvFCHead equivalent: flatten + 2x FC + ReLU (f32)."""
+    """FastRCNNConvFCHead equivalent: flatten + 2x FC + ReLU. The FCs run in
+    ``compute_dtype`` (None: the input's dtype) with the f32 weights cast to
+    it; the features come out f32 for the numerics-sensitive heads."""
 
-    def __init__(self, in_dim: int, fc_dim: int = 1024):
+    def __init__(self, in_dim: int, fc_dim: int = 1024, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.fc1 = nn.Linear(in_dim, fc_dim)
         self.fc2 = nn.Linear(fc_dim, fc_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(*x.shape[:-3], -1)
-        return torch.relu(self.fc2(torch.relu(self.fc1(x))))
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        for fc in (self.fc1, self.fc2):
+            x = torch.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
+        return x.float()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Caffe2 Xavier (uniform, fan_in) weights, zero biases."""
@@ -267,6 +277,12 @@ def classifier_loss(
 # --------------------------------------------------------------------------
 
 
+ROI_ALIGN_IMPLS = ("auto", "gather", "pallas")
+# TPU.ROI_ALIGN_BWD -> the backward's accumulator dtype ("xla": the f32
+# scatter-add of the gather path, which the f32 kernel computes)
+ROI_ALIGN_BWD_ACC = {"pallas": torch.float32, "xla": torch.float32, "pallas_bf16": torch.bfloat16}
+
+
 def pool_features(
     fpn_feats: Dict[str, torch.Tensor],
     boxes: torch.Tensor,  # (B, S, 4)
@@ -274,15 +290,33 @@ def pool_features(
     strides: Sequence[int] = (4, 8, 16, 32),
     resolution: int = 7,
     sampling_ratio: int = 2,
+    impl: str = "gather",
+    bwd_impl: str = "pallas",
 ) -> torch.Tensor:
     """(B, S, P, P, C) f32 RoI features, differentiable in the features (the
     boxes get no gradient). P2-P5 are cast to bf16 whatever the compute dtype
     (the JAX pooling dtype); on the GPU the channels_last NCHW maps are
     NHWC-contiguous already, so the permute below copies nothing, and the
-    backward's NHWC gradients flow back through the same views."""
+    backward's NHWC gradients flow back through the same views.
+
+    ``impl`` (``TPU.ROI_ALIGN_IMPL``): "gather" pools every RoI at its
+    canonical FPN level, as the JAX gather path; so does "auto", which is
+    what JAX resolves it to on any backend but a TPU
+    (``openset_rcnn_tpu/models/detector.py:284-296``); "pallas" pools at the
+    TPU kernels' window-fit level, as JAX's ``impl="pallas"``. ``bwd_impl``
+    (``TPU.ROI_ALIGN_BWD``) picks the backward's accumulators:
+    ``ROI_ALIGN_BWD_ACC``."""
+    if impl not in ROI_ALIGN_IMPLS:
+        raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {impl!r}")
+    if bwd_impl not in ROI_ALIGN_BWD_ACC:
+        raise ValueError(f"TPU.ROI_ALIGN_BWD must be one of {tuple(ROI_ALIGN_BWD_ACC)}, not {bwd_impl!r}")
     feats = [fpn_feats[f].to(torch.bfloat16).permute(0, 2, 3, 1).contiguous() for f in in_features]
-    levels = assign_levels(boxes, min_level=2, max_level=2 + len(feats) - 1)
-    return RoIAlignFunction.apply(boxes, levels, tuple(strides), resolution, sampling_ratio, *feats)
+    if impl == "pallas":
+        levels = assign_levels_window_fit(boxes, strides)
+    else:
+        levels = assign_levels(boxes, min_level=2, max_level=2 + len(feats) - 1)
+    return RoIAlignFunction.apply(boxes, levels, tuple(strides), resolution, sampling_ratio,
+                                  ROI_ALIGN_BWD_ACC[bwd_impl], *feats)
 
 
 def raw_detections(

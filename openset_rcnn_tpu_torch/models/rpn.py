@@ -25,23 +25,30 @@ from ..ops.sampling import draw_uniforms, subsample_labels
 from ..ops.targets import centerness_targets
 from ..ops.topk import stable_topk
 from ..structures import GroundTruth, Proposals
+from .resnet import Conv2d
 
 
 class ClsFreeRPNHead(nn.Module):
-    """Per-level head, weights shared across FPN levels."""
+    """Per-level head, weights shared across FPN levels. ``compute_dtype``
+    (None: the inputs' dtype) casts the inputs and runs the convs in it; the
+    squared norm is summed in f32 either way."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 1, delta_bias_init: float = 0.0):
+    def __init__(self, channels: int = 256, num_anchors: int = 1, delta_bias_init: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.delta_bias_init = delta_bias_init
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
-        self.centerness = nn.Conv2d(channels, num_anchors, 1)
+        self.compute_dtype = compute_dtype
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.anchor_deltas = Conv2d(channels, num_anchors * 4, 1)
+        self.centerness = Conv2d(channels, num_anchors, 1)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Per level: deltas (B, H*W*A, 4) and centerness (B, H*W*A), f32,
         in the JAX (y, x, a) row-major anchor order."""
         deltas, ctrs = [], []
         for x in feats:
+            if self.compute_dtype is not None:
+                x = x.to(self.compute_dtype)
             t = torch.relu(self.conv(x))
             sq = torch.sum(torch.square(t.float()), dim=1, keepdim=True)
             t = t * torch.rsqrt(sq + 1e-12).to(t.dtype)

@@ -1,30 +1,41 @@
-"""Multilevel RoIAlign (V2 / aligned=True): level assignment, plain version,
-kernel wrapper.
+"""Multilevel RoIAlign (V2 / aligned=True): level assignment, plain versions,
+kernel wrappers.
 
-Port of ``openset_rcnn_tpu/ops/roi_align.py:37-193, 340-361``. The semantics
-are those of the exact gather path there, for every box shape: the TPU
-kernel's level bump for boxes of aspect ratio above ~3.6 is not reproduced.
+Port of ``openset_rcnn_tpu/ops/roi_align.py:37-193, 340-437`` and of the two
+TPU kernels' level rule (``ops/pallas/roi_align_kernel.py:59-64``). Every
+RoI is pooled with exact bilinear RoIAlign from the FPN level it is given.
 
-* ``assign_levels`` computes each RoI's FPN level once, in torch, with the
-  expression of the JAX version. The kernel and the plain version both take
-  that one result, so ``log2`` rounding cannot move a box across a level
-  boundary between them.
+* Levels are computed once, in torch, and handed to the kernel and to the
+  plain version alike, so ``log2`` rounding cannot move a box across a level
+  boundary between them. ``assign_levels`` is the gather path's rule;
+  ``assign_levels_window_fit`` is the TPU kernels' window-fit rule, which
+  moves a box whose longer side spans more than ``MAX_EXTENT`` cells of its
+  level up to the first level where it fits (boxes of aspect ratio above
+  ~3.6).
 * ``roi_align_plain`` is the gather formulation in PyTorch, chunked over RoIs
   (as ``_gather_chunked`` is) so its (chunk, 14, 14, C) neighbour tensors stay
-  small at ~4.3k RoIs per image. The CPU path and the kernel's oracle.
-* ``roi_align`` is the wrapper: plain version for CPU tensors, the CUDA kernel
+  small at ~4.3k RoIs per image. The CPU path and the kernels' oracle.
+* ``roi_align`` is the wrapper of K1 (``roi_align_pallas_v2``): bf16 features
+  in, f32 out; the plain version for CPU tensors, the CUDA kernel
   (``csrc/roi_align_fwd.cu``) for CUDA tensors. There is no fallback.
+* ``roi_align_window`` is the counterpart of K5 (``roi_align_pallas_fwd``):
+  window-fit levels, f32 or bf16 features, the output in the features' dtype
+  (computed in f32, rounded once); the same CUDA source.
 * The backward (port of the custom VJP at ``ops/roi_align.py:402-437``):
-  ``roi_align_bwd_plain`` transposes the gather path with an explicit f32
-  ``index_add_``; ``roi_align_bwd`` is its wrapper, with the CUDA kernel
-  ``csrc/roi_align_bwd.cu`` for CUDA tensors. Both return per-level f32
-  accumulators. ``RoIAlignFunction`` joins the two wrappers into one
-  differentiable op; its backward rounds the accumulators to the features'
-  dtype, as the JAX VJP does, and gives the boxes no gradient.
+  ``roi_align_bwd_plain`` transposes the gather path. With f32 accumulators
+  it is one explicit f32 ``index_add_``; with bf16 accumulators (the
+  ``pallas_bf16`` mode of K2) it visits the RoIs as the TPU kernel does, one
+  RoI of every image per round, and adds each RoI's f32 window gradient to
+  the bf16 accumulators in one read-add-round. ``roi_align_bwd`` and
+  ``roi_align_bwd_bf16`` are the wrappers, with the CUDA kernels of
+  ``csrc/roi_align_bwd.cu`` for CUDA tensors. ``RoIAlignFunction`` joins
+  forward and backward into one differentiable op; its backward rounds the
+  accumulators to the features' dtype, as the JAX VJP does, and gives the
+  boxes no gradient.
 
-Layout: features are per-level NHWC (B, H_l, W_l, C) bf16; boxes (B, R, 4)
-xyxy f32 in image coordinates; the output is (B, R, P, P, C) f32, the JAX
-package's layout, so a flatten of the last three dims matches its ``fc1``.
+Layout: features are per-level NHWC (B, H_l, W_l, C); boxes (B, R, 4) xyxy
+f32 in image coordinates; the output is (B, R, P, P, C), the JAX package's
+layout, so a flatten of the last three dims matches its ``fc1``.
 """
 from __future__ import annotations
 
@@ -39,6 +50,9 @@ from . import _build
 # budget of the JAX package's GATHER_CHUNK_BUDGET.
 PLAIN_CHUNK = 512
 NUM_LEVELS = 4
+# The TPU kernels' window-fit bound: a RoI's longer side spans at most this
+# many cells of its level (roi_align_kernel.py:33, with a 56x64 window).
+MAX_EXTENT = 50.0
 
 
 def assign_levels(
@@ -55,6 +69,20 @@ def assign_levels(
     lvl = torch.floor(canonical_level + torch.log2(size / canonical_size + 1e-8))
     lvl = torch.clamp(lvl, min_level, max_level)
     return (lvl - min_level).to(torch.int32)
+
+
+def assign_levels_window_fit(boxes: torch.Tensor, strides: Sequence[int]) -> torch.Tensor:
+    """(...,) int32 level index under the TPU kernels' window-fit rule
+    (``roi_align_kernel.py::_geometry``, lines 59-64): the canonical level,
+    raised to the first level whose cells the box's longer side spans at
+    most ``MAX_EXTENT`` times, clipped to the pyramid."""
+    n = len(strides)
+    lvl = assign_levels(boxes, min_level=2, max_level=2 + n - 1)
+    max_side = torch.clamp(torch.maximum(boxes[..., 2] - boxes[..., 0], boxes[..., 3] - boxes[..., 1]), min=1e-6)
+    # a tensor divisor: on CUDA a Python-scalar divisor becomes a multiply by
+    # its reciprocal, one rounding off the quotient the JAX rule computes
+    need = torch.ceil(torch.log2(max_side / torch.full_like(max_side, strides[0] * MAX_EXTENT)))
+    return torch.clamp(torch.maximum(lvl, need.to(torch.int32)), 0, n - 1).to(torch.int32)
 
 
 def _sample_axis(lo, hi, extent, P: int, S: int):
@@ -85,7 +113,8 @@ def roi_align_plain(
     sampling_ratio: int = 2,
     chunk: int = PLAIN_CHUNK,
 ) -> torch.Tensor:
-    """Plain PyTorch RoIAlignV2 on any device; see the module docstring."""
+    """Plain PyTorch RoIAlignV2 on any device, in f32 whatever the features'
+    dtype; see the module docstring."""
     B, R = boxes.shape[:2]
     C = feats[0].shape[-1]
     P, S = out_size, sampling_ratio
@@ -97,6 +126,19 @@ def roi_align_plain(
         val = sum(flat[idx.reshape(-1)].reshape(n, P * S, P * S, C).float() * w[..., None] for idx, w in neighbours)
         out[sl] = (val * ok[..., None]).reshape(n, P, S, P, S, C).mean(dim=(2, 4))
     return out.reshape(B, R, P, P, C)
+
+
+def roi_align_window_plain(
+    feats: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Plain version of K5: window-fit levels, the gather path's arithmetic
+    in f32, the result cast to the features' dtype."""
+    levels = assign_levels_window_fit(boxes, strides)
+    return roi_align_plain(feats, boxes, levels, strides, out_size, sampling_ratio).to(feats[0].dtype)
 
 
 def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int):
@@ -138,6 +180,7 @@ def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int
         yield sl, bx.shape[0], neighbours, oky[:, :, None] * okx[:, None, :]
 
 
+# both entry points of csrc/roi_align_fwd.cu: one library, one signature table
 _SIGNATURE = {
     "roi_align_fwd": [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 8
@@ -145,10 +188,16 @@ _SIGNATURE = {
     + [ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_int] * 5
     + [ctypes.c_void_p, ctypes.c_void_p],
+    "roi_align_window_fwd": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 4
+    + [ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 6
+    + [ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
-def _check_cuda_inputs(feats, boxes, levels, strides, P, S):
+def _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.bfloat16,)):
     if len(feats) != NUM_LEVELS or len(strides) != NUM_LEVELS:
         raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(feats)}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
@@ -157,9 +206,11 @@ def _check_cuda_inputs(feats, boxes, levels, strides, P, S):
     if levels.dtype != torch.int32 or tuple(levels.shape) != (B, R):
         raise ValueError(f"levels must be ({B}, {R}) int32, got {tuple(levels.shape)} {levels.dtype}")
     C = feats[0].shape[-1]
+    names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
     for f in feats:
-        if f.dtype != torch.bfloat16 or f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
-            raise ValueError(f"features must be (B, H, W, {C}) bfloat16, got {tuple(f.shape)} {f.dtype}")
+        if f.dtype not in dtypes or f.dtype != feats[0].dtype or f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
+            raise ValueError(f"features must be (B, H, W, {C}) {names}, all of one dtype, "
+                             f"got {tuple(f.shape)} {f.dtype}")
     for t in (*feats, boxes, levels):
         if t.device != boxes.device:
             raise ValueError("features, boxes and levels must be on one device")
@@ -167,6 +218,19 @@ def _check_cuda_inputs(feats, boxes, levels, strides, P, S):
             raise ValueError("features (NHWC), boxes and levels must be contiguous")
     if S < 1 or P * S > 32:
         raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
+
+
+def _launch_fwd(fn: str, feats, boxes, levels, strides, P, S, out, *dtype_flag):
+    B, R = boxes.shape[:2]
+    lib = _build.load("roi_align_fwd", _SIGNATURE)
+    hw = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    with torch.cuda.device(boxes.device):
+        code = getattr(lib, fn)(
+            *[f.data_ptr() for f in feats], *hw, *[1.0 / s for s in strides],
+            boxes.data_ptr(), levels.data_ptr(), B * R, R, feats[0].shape[-1], P, S, *dtype_flag,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, fn, code)
 
 
 def roi_align(
@@ -177,7 +241,8 @@ def roi_align(
     out_size: int = 7,
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """RoIAlignV2 forward: (B, R, P, P, C) f32 from NHWC bf16 P2-P5.
+    """RoIAlignV2 forward (K1): (B, R, P, P, C) f32 from NHWC bf16 P2-P5,
+    each RoI from the level in ``levels``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -188,24 +253,48 @@ def roi_align(
     P, S = out_size, sampling_ratio
     _check_cuda_inputs(feats, boxes, levels, strides, P, S)
     B, R = boxes.shape[:2]
-    C = feats[0].shape[-1]
-    out = torch.empty((B, R, P, P, C), dtype=torch.float32, device=boxes.device)
+    out = torch.empty((B, R, P, P, feats[0].shape[-1]), dtype=torch.float32, device=boxes.device)
     if B * R == 0:
         return out
-    lib = _build.load("roi_align_fwd", _SIGNATURE)
-    hw = [d for f in feats for d in (f.shape[1], f.shape[2])]
-    with torch.cuda.device(boxes.device):
-        code = lib.roi_align_fwd(
-            *[f.data_ptr() for f in feats], *hw, *[1.0 / s for s in strides],
-            boxes.data_ptr(), levels.data_ptr(), B * R, R, C, P, S,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, "roi_align_fwd", code)
+    _launch_fwd("roi_align_fwd", feats, boxes, levels, strides, P, S, out)
     roi_align.launches += 1
     return out
 
 
 roi_align.launches = 0  # kernel launches since the last reset
+
+
+def roi_align_window(
+    feats: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """K5's API (``roi_align_pallas_fwd``): per-level (B, H_l, W_l, C) f32 or
+    bf16 features, (B, R, 4) f32 boxes -> (B, R, P, P, C) in the features'
+    dtype, each RoI at its window-fit level.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_window_plain(feats, boxes, strides, out_size, sampling_ratio)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align_window runs on CPU or CUDA tensors, not {boxes.device}")
+    P, S = out_size, sampling_ratio
+    levels = assign_levels_window_fit(boxes, strides)
+    _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.float32, torch.bfloat16))
+    B, R = boxes.shape[:2]
+    out = torch.empty((B, R, P, P, feats[0].shape[-1]), dtype=feats[0].dtype, device=boxes.device)
+    if B * R == 0:
+        return out
+    _launch_fwd("roi_align_window_fwd", feats, boxes, levels, strides, P, S, out,
+                int(feats[0].dtype == torch.bfloat16))
+    roi_align_window.launches += 1
+    return out
+
+
+roi_align_window.launches = 0  # kernel launches since the last reset
 
 
 # ---------------------------------------------------------------- backward
@@ -220,14 +309,26 @@ def roi_align_bwd_plain(
     out_size: int = 7,
     sampling_ratio: int = 2,
     chunk: int = PLAIN_CHUNK,
+    acc_dtype: torch.dtype = torch.float32,
 ) -> List[torch.Tensor]:
     """d(features) of ``roi_align_plain`` for the cotangent ``grad``
-    (B, R, P, P, C): per-level (B, H_l, W_l, C) f32 accumulators.
+    (B, R, P, P, C): per-level (B, H_l, W_l, C) accumulators of ``acc_dtype``.
 
-    The transpose of the gather path, written out: each bilinear neighbour
-    receives (cotangent / count) * in_range * weight through an f32
-    ``index_add_``, with the forward's weights, so no bf16 rounding enters
-    the sums (autograd through bf16 indexing would accumulate in bf16)."""
+    f32: the transpose of the gather path, written out: each bilinear
+    neighbour receives (cotangent / count) * in_range * weight through an
+    f32 ``index_add_``, with the forward's weights, so no bf16 rounding
+    enters the sums (autograd through bf16 indexing would accumulate in
+    bf16).
+
+    bf16 (K2's ``pallas_bf16`` mode): the TPU kernel's order. Round r takes
+    RoI r of every image (the image-interleaved order of
+    ``roi_align_v2.py:531-539``; the images' cells are disjoint, so each
+    cell sees its image's RoIs in order), sums each RoI's window gradient in
+    f32 and adds it to the bf16 accumulator with one rounding per RoI."""
+    if acc_dtype == torch.bfloat16:
+        return _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
+    if acc_dtype != torch.float32:
+        raise ValueError(f"accumulators are float32 or bfloat16, not {acc_dtype}")
     B, R = boxes.shape[:2]
     C = grad.shape[-1]
     P, S = out_size, sampling_ratio
@@ -240,12 +341,36 @@ def roi_align_bwd_plain(
         d = gs * ok[..., None]
         for idx, w in neighbours:
             flat.index_add_(0, idx.reshape(-1), (d * w[..., None]).reshape(-1, C))
-    flat = flat.reshape(B, per_image, C)
+    return _split_levels(flat, B, level_hw)
+
+
+def _split_levels(flat, B, level_hw):
+    flat = flat.reshape(B, -1, flat.shape[-1])
     out, start = [], 0
     for h, w in level_hw:
-        out.append(flat[:, start : start + h * w].reshape(B, h, w, C))
+        out.append(flat[:, start : start + h * w].reshape(B, h, w, flat.shape[-1]))
         start += h * w
     return out
+
+
+def _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, P, S):
+    B, R = boxes.shape[:2]
+    C = grad.shape[-1]
+    per_image = sum(h * w for h, w in level_hw)
+    flat = torch.zeros((B * per_image, C), dtype=torch.bfloat16, device=grad.device)
+    g = grad.float() * (1.0 / (S * S))  # d(mean), as the TPU kernel scales the cotangent
+    for r in range(R):
+        (_, n, neighbours, ok), = _chunk_geometry(boxes[:, r : r + 1], levels[:, r : r + 1], level_hw,
+                                                  strides, P, S, chunk=B)
+        gs = g[:, r][:, :, None, :, None, :].expand(n, P, S, P, S, C).reshape(n, P * S, P * S, C)
+        d = gs * ok[..., None]
+        # the round's window gradients, one f32 sum per touched cell
+        idx = torch.cat([i.reshape(-1) for i, _ in neighbours])
+        vals = torch.cat([(d * w[..., None]).reshape(-1, C) for _, w in neighbours])
+        cells, inverse = torch.unique(idx, return_inverse=True)
+        win = torch.zeros((cells.shape[0], C), dtype=torch.float32, device=grad.device).index_add_(0, inverse, vals)
+        flat[cells] = (flat[cells].float() + win).to(torch.bfloat16)
+    return _split_levels(flat, B, level_hw)
 
 
 _SIGNATURE_BWD = {
@@ -255,28 +380,16 @@ _SIGNATURE_BWD = {
     + [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "roi_align_bwd_bf16": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 4
+    + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 }
 
 
-def roi_align_bwd(
-    grad: torch.Tensor,
-    boxes: torch.Tensor,
-    levels: torch.Tensor,
-    level_hw: Sequence[Tuple[int, int]],
-    strides: Sequence[int],
-    out_size: int = 7,
-    sampling_ratio: int = 2,
-) -> List[torch.Tensor]:
-    """RoIAlignV2 backward: per-level (B, H_l, W_l, C) f32 accumulators from
-    the (B, R, P, P, C) f32 cotangent.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
-    if boxes.device.type == "cpu":
-        return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"roi_align_bwd runs on CPU or CUDA tensors, not {boxes.device}")
-    P, S = out_size, sampling_ratio
+def _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S):
     if len(level_hw) != NUM_LEVELS or len(strides) != NUM_LEVELS:
         raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(level_hw)}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
@@ -293,19 +406,46 @@ def roi_align_bwd(
             raise ValueError("grad, boxes and levels must be contiguous")
     if S < 1 or P * S > 32:
         raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
-    C = grad.shape[-1]
-    accs = [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
-    if B * R == 0:
-        return accs
+
+
+def _launch_bwd(fn, accs, grad, boxes, levels, level_hw, strides, P, S):
+    B, R = boxes.shape[:2]
     lib = _build.load("roi_align_bwd", _SIGNATURE_BWD)
     hw = [d for h, w in level_hw for d in (h, w)]
     with torch.cuda.device(boxes.device):
-        code = lib.roi_align_bwd(
+        code = getattr(lib, fn)(
             *[a.data_ptr() for a in accs], *hw, *[1.0 / s for s in strides],
-            boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), B * R, R, C, P, S,
+            boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), B * R, R, grad.shape[-1], P, S,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, "roi_align_bwd", code)
+    _build.check(lib, fn, code)
+
+
+def roi_align_bwd(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> List[torch.Tensor]:
+    """RoIAlignV2 backward (K2, f32 accumulators): per-level
+    (B, H_l, W_l, C) f32 accumulators from the (B, R, P, P, C) f32 cotangent.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd runs on CPU or CUDA tensors, not {boxes.device}")
+    P, S = out_size, sampling_ratio
+    _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S)
+    B, C = boxes.shape[0], grad.shape[-1]
+    accs = [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
+    if boxes.numel() == 0:
+        return accs
+    _launch_bwd("roi_align_bwd", accs, grad, boxes, levels, level_hw, strides, P, S)
     roi_align_bwd.launches += 1
     return accs
 
@@ -313,23 +453,65 @@ def roi_align_bwd(
 roi_align_bwd.launches = 0  # kernel launches since the last reset
 
 
+def roi_align_bwd_bf16(
+    grad: torch.Tensor,
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> List[torch.Tensor]:
+    """RoIAlignV2 backward in K2's ``pallas_bf16`` mode: per-level
+    (B, H_l, W_l, C) **bf16** accumulators, each RoI's f32 window gradient
+    added with one rounding per RoI. C must be even and
+    ``out_size * sampling_ratio`` at most 16.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio,
+                                   acc_dtype=torch.bfloat16)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd_bf16 runs on CPU or CUDA tensors, not {boxes.device}")
+    P, S = out_size, sampling_ratio
+    _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S)
+    B, C = boxes.shape[0], grad.shape[-1]
+    if C % 2 or P * S > 16:
+        raise ValueError(f"the bf16-accumulator kernel takes an even C (channel pairs) and "
+                         f"out_size * sampling_ratio <= 16, got C={C}, {P}*{S}")
+    accs = [torch.zeros((B, h, w, C), dtype=torch.bfloat16, device=boxes.device) for h, w in level_hw]
+    if boxes.numel() == 0:
+        return accs
+    _launch_bwd("roi_align_bwd_bf16", accs, grad, boxes, levels, level_hw, strides, P, S)
+    roi_align_bwd_bf16.launches += 1
+    return accs
+
+
+roi_align_bwd_bf16.launches = 0  # kernel launches since the last reset
+
+
 class RoIAlignFunction(torch.autograd.Function):
-    """Differentiable multilevel RoIAlign: ``roi_align`` forward,
-    ``roi_align_bwd`` backward, the accumulators rounded to the features'
-    dtype. It saves the boxes, the levels and the level shapes, not the
-    features. Call as ``RoIAlignFunction.apply(boxes, levels, strides,
-    out_size, sampling_ratio, *feats)``."""
+    """Differentiable multilevel RoIAlign: ``roi_align`` forward; backward
+    by ``roi_align_bwd`` (``acc_dtype`` float32) or ``roi_align_bwd_bf16``
+    (bfloat16), the accumulators rounded to the features' dtype. It saves the
+    boxes, the levels and the level shapes, not the features. Call as
+    ``RoIAlignFunction.apply(boxes, levels, strides, out_size,
+    sampling_ratio, acc_dtype, *feats)``."""
 
     @staticmethod
-    def forward(ctx, boxes, levels, strides, out_size, sampling_ratio, *feats):
+    def forward(ctx, boxes, levels, strides, out_size, sampling_ratio, acc_dtype, *feats):
+        if acc_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"accumulators are float32 or bfloat16, not {acc_dtype}")
         ctx.save_for_backward(boxes, levels)
         ctx.args = (tuple(strides), out_size, sampling_ratio, [(f.shape[1], f.shape[2]) for f in feats],
-                    feats[0].dtype)
+                    feats[0].dtype, acc_dtype)
         return roi_align(list(feats), boxes, levels, strides, out_size, sampling_ratio)
 
     @staticmethod
     def backward(ctx, grad):
         boxes, levels = ctx.saved_tensors
-        strides, out_size, sampling_ratio, level_hw, dtype = ctx.args
-        accs = roi_align_bwd(grad.contiguous(), boxes, levels, level_hw, strides, out_size, sampling_ratio)
-        return (None,) * 5 + tuple(a.to(dtype) for a in accs)
+        strides, out_size, sampling_ratio, level_hw, dtype, acc_dtype = ctx.args
+        bwd = roi_align_bwd_bf16 if acc_dtype == torch.bfloat16 else roi_align_bwd
+        accs = bwd(grad.contiguous(), boxes, levels, level_hw, strides, out_size, sampling_ratio)
+        return (None,) * 6 + tuple(a.to(dtype) for a in accs)

@@ -16,15 +16,24 @@ from openset_rcnn_tpu_torch.ops.nms import nms_keep, nms_keep_plain
 from openset_rcnn_tpu_torch.ops.roi_align import (
     RoIAlignFunction,
     assign_levels,
+    assign_levels_window_fit,
     roi_align,
     roi_align_bwd,
+    roi_align_bwd_bf16,
     roi_align_bwd_plain,
     roi_align_plain,
+    roi_align_window,
+    roi_align_window_plain,
 )
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
 BWD_TOL = 1e-5  # RoIAlign backward, scaled by max(1, max|want|): atomics reorder the f32 sums
+# bf16 accumulators, kernel vs plain: both round each RoI's f32 window sum
+# into the cell once, but RoIs of one image reach a cell in another order, so
+# each cell may differ by a few roundings of its partial sums: 4 bf16 steps
+# (2^-5) of the cell plus one step of the largest cell
+BF16_ACC_RTOL, BF16_ACC_ATOL = 2.0**-5, 2.0**-7
 
 
 @pytest.fixture
@@ -202,7 +211,7 @@ def test_roi_align_function_runs_both_kernels(dev):
     feats, boxes, levels, cot = bwd_inputs(dev, 2, 150, 64, seed=7)
     feats = [f.requires_grad_(True) for f in feats]
     fwd, bwd = roi_align.launches, roi_align_bwd.launches
-    out = RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, *feats)
+    out = RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, torch.float32, *feats)
     out.backward(cot)
     torch.cuda.synchronize()
     assert (roi_align.launches, roi_align_bwd.launches) == (fwd + 1, bwd + 1)
@@ -211,3 +220,84 @@ def test_roi_align_function_runs_both_kernels(dev):
     assert all(f.grad.dtype == torch.bfloat16 for f in feats)
     assert_bwd_close([f.grad for f in feats], want, rtol=2.0**-8)
     assert boxes.grad is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [256, 200, 32])
+def test_roi_align_window_kernel_matches_plain(dev, C, dtype):
+    """K5: window-fit levels (some RoIs bumped), output in the features'
+    dtype. f32 at the JAX kernel's tolerance; bf16 within one rounding (the
+    f32 values agree, their bf16 roundings may differ by one step)."""
+    feats, boxes = roi_inputs(dev, 3, 301, C, seed=C)
+    feats = [f.to(dtype) for f in feats]
+    assert bool((assign_levels_window_fit(boxes, STRIDES) != assign_levels(boxes)).any())
+    before = roi_align_window.launches
+    got = roi_align_window(feats, boxes, STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_window.launches == before + 1
+    assert got.dtype == dtype and got.shape == (3, 301, 7, 7, C)
+    want = roi_align_window_plain(feats, boxes, STRIDES)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=2.0**-7)
+
+
+def test_roi_align_window_kernel_rejects_what_it_does_not_take(dev):
+    feats, boxes = roi_inputs(dev, 1, 8, 32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        roi_align_window([f.double() for f in feats], boxes, STRIDES)
+    with pytest.raises(ValueError, match="one dtype"):
+        roi_align_window([feats[0].float(), *feats[1:]], boxes, STRIDES)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_window([f.transpose(1, 2) for f in feats], boxes, STRIDES)
+
+
+@pytest.mark.parametrize("C", [256, 200, 32])
+def test_roi_align_bwd_bf16_kernel_matches_plain(dev, C):
+    """K2's pallas_bf16 mode: bf16 accumulators in device memory, within the
+    stated tolerance of the plain version's, and within the JAX suite's band
+    (rtol 3e-2, atol 5e-2) of the f32 accumulators."""
+    feats, boxes, levels, cot = bwd_inputs(dev, 3, 301, C, seed=C)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    before = roi_align_bwd_bf16.launches
+    got = roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES)
+    torch.cuda.synchronize()
+    assert roi_align_bwd_bf16.launches == before + 1
+    assert all(a.dtype == torch.bfloat16 and a.shape == (3, h, w, C) for a, (h, w) in zip(got, level_hw))
+    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.bfloat16)
+    scale = max(1.0, max(float(w.float().abs().max()) for w in want))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=BF16_ACC_RTOL, atol=BF16_ACC_ATOL * scale)
+    for a, w in zip(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES)):
+        torch.testing.assert_close(a.float(), w, rtol=3e-2, atol=5e-2)
+
+
+def test_roi_align_bwd_bf16_kernel_rejects_what_it_does_not_take(dev):
+    feats, boxes, levels, cot = bwd_inputs(dev, 1, 8, 32, seed=0)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    with pytest.raises(ValueError, match="even C"):
+        roi_align_bwd_bf16(cot[..., :31].contiguous(), boxes, levels, level_hw, STRIDES)
+    with pytest.raises(ValueError, match="<= 16"):
+        roi_align_bwd_bf16(torch.zeros(1, 8, 7, 7, 32, device=dev), boxes, levels, level_hw, STRIDES, 7, 3)
+    with pytest.raises(ValueError, match="float32"):
+        roi_align_bwd_bf16(cot.double(), boxes, levels, level_hw, STRIDES)
+
+
+def test_roi_align_function_runs_the_bf16_backward(dev):
+    """Autograd with bf16 accumulators: one K1 and one bf16-backward launch,
+    the f32 kernel not at all."""
+    feats, boxes, levels, cot = bwd_inputs(dev, 2, 150, 64, seed=8)
+    feats = [f.requires_grad_(True) for f in feats]
+    counts = roi_align.launches, roi_align_bwd.launches, roi_align_bwd_bf16.launches
+    out = RoIAlignFunction.apply(boxes, levels, STRIDES, 7, 2, torch.bfloat16, *feats)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (roi_align.launches, roi_align_bwd.launches, roi_align_bwd_bf16.launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.bfloat16)
+    scale = max(1.0, max(float(w.float().abs().max()) for w in want))
+    for f, w in zip(feats, want):
+        assert f.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(f.grad.float(), w.float(), rtol=BF16_ACC_RTOL, atol=BF16_ACC_ATOL * scale)

@@ -17,6 +17,7 @@ from openset_rcnn_tpu.ops import boxes as jax_boxes
 from openset_rcnn_tpu.ops import nms as jax_nms
 from openset_rcnn_tpu.ops import roi_align as jax_roi
 from openset_rcnn_tpu.ops.pallas.nms_kernel import nms_keep_pallas
+from openset_rcnn_tpu.ops.pallas.roi_align_kernel import WIN_X, WIN_Y, _geometry, roi_align_pallas_fwd
 from openset_rcnn_tpu.ops.pallas.roi_align_v2 import roi_align_pallas_v2
 from openset_rcnn_tpu_torch.ops import anchors as port_anchors
 from openset_rcnn_tpu_torch.ops import box_transforms as port_tf
@@ -163,6 +164,72 @@ def test_roi_align_plain_matches_pallas_v2(rng):
     want = roi_align_pallas_v2(jfeats, jnp.asarray(boxes), STRIDES, interpret=True)
     got = port_roi.roi_align(feats, t(boxes), port_roi.assign_levels(t(boxes)), STRIDES)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+
+
+# ------------------------------------------------ K5: window-fit RoIAlign
+
+
+def elongated_boxes(rng, B, R):
+    """Inside the canvas, a quarter wide and a quarter tall (aspect 3.7 to
+    9, beyond the window-fit bound of ~3.6), over all four levels."""
+    n = R // 4
+    side = np.exp(rng.uniform(np.log(8.0), np.log(480.0), (B, R)))
+    ar = rng.uniform(0.6, 1.6, (B, R))
+    ar[:, :n] = rng.uniform(3.7, 9.0, (B, n))
+    ar[:, n : 2 * n] = 1.0 / rng.uniform(3.7, 9.0, (B, n))
+    w, h = side * np.sqrt(ar), side / np.sqrt(ar)
+    cx, cy = rng.uniform(0, IMG_W, (B, R)), rng.uniform(0, IMG_H, (B, R))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    return np.clip(boxes, 0, [IMG_W, IMG_H, IMG_W, IMG_H]).astype(np.float32)
+
+
+def test_assign_levels_window_fit_matches_the_kernels_rule(rng):
+    """Exactly the level of ``roi_align_kernel._geometry`` (the rule of K1
+    and K5 on the TPU), on random boxes of which the rule moves some up."""
+    boxes = np.concatenate([elongated_boxes(rng, 2, 400), roi_boxes(rng, 2, 300)], 1)
+    got = port_roi.assign_levels_window_fit(t(boxes), STRIDES)
+    pad_hw = [(max(h, WIN_Y), (max(w, WIN_X) + 7) // 8 * 8) for h, w in LEVEL_HW]
+    want = _geometry(LEVEL_HW, pad_hw, STRIDES, jnp.asarray(boxes.reshape(-1, 4)), 7, 2, 4)["lvl"]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().reshape(-1), np.asarray(want))
+    bumped = got != port_roi.assign_levels(t(boxes))
+    assert 0 < int(bumped.sum()) and bool((got >= port_roi.assign_levels(t(boxes))).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_window_matches_pallas_fwd(rng, dtype):
+    """K5's counterpart against ``roi_align_pallas_fwd`` in interpret mode.
+
+    f32 features: at K5's own tolerance, atol 2e-5
+    (tests/test_roi_align_pallas.py:29). bf16 features: the installed JAX
+    cannot trace K5 on bf16 features (the kernel stores an f32 product into
+    its bf16 scratch, roi_align_kernel.py:158), so the reference is K5 on
+    f32 copies of the same bf16 values, rounded to bf16 once; the port
+    computes in f32 and rounds once, so the two differ by at most one bf16
+    step where their f32 values straddle a rounding boundary (rtol 2^-7)."""
+    B, R, C = 2, 24, 32
+    boxes = elongated_boxes(rng, B, R)
+    assert bool((port_roi.assign_levels_window_fit(t(boxes), STRIDES) != port_roi.assign_levels(t(boxes))).any())
+    feats32 = [rng.randn(B, h, w, C).astype(np.float32) for h, w in LEVEL_HW]
+    if dtype == "float32":
+        feats = [t(f) for f in feats32]
+        want = np.asarray(roi_align_pallas_fwd([jnp.asarray(f) for f in feats32], jnp.asarray(boxes), STRIDES,
+                                               interpret=True))
+        atol, rtol = 2e-5, 0.0
+    else:
+        feats = [t(f).to(torch.bfloat16) for f in feats32]
+        want = roi_align_pallas_fwd([jnp.asarray(f.float().numpy()) for f in feats], jnp.asarray(boxes), STRIDES,
+                                    interpret=True)
+        want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+        atol, rtol = 1e-6, 2.0**-7
+    got = port_roi.roi_align_window_plain(feats, t(boxes), STRIDES)
+    assert got.dtype == feats[0].dtype and got.shape == (B, R, 7, 7, C)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(port_roi.roi_align_window(feats, t(boxes), STRIDES), got)
+    # the gather levels give other values on the bumped boxes: the rule matters
+    gather = port_roi.roi_align_plain(feats, t(boxes), port_roi.assign_levels(t(boxes)), STRIDES)
+    assert float((gather - got.float()).abs().max()) > 0.1
 
 
 # ----------------------------------------------------------------- NMS

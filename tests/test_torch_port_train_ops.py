@@ -330,7 +330,7 @@ def test_roi_align_function_gradient_is_the_plain_backward(rng):
     feats = [torch.randn(B, h, w, C, dtype=torch.float32).to(torch.bfloat16).requires_grad_(True)
              for h, w in LEVEL_HW]
     g = torch.from_numpy(rng.randn(B, R, 7, 7, C).astype(np.float32))
-    out = port_roi.RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, *feats)
+    out = port_roi.RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, torch.float32, *feats)
     assert torch.equal(out, port_roi.roi_align([f.detach() for f in feats], boxes.detach(), levels, STRIDES))
     out.backward(g)
     want = port_roi.roi_align_bwd_plain(g, boxes.detach(), levels, LEVEL_HW, STRIDES)
@@ -338,6 +338,82 @@ def test_roi_align_function_gradient_is_the_plain_backward(rng):
         assert f.grad.dtype == torch.bfloat16
         assert torch.equal(f.grad, w.to(torch.bfloat16))
     assert boxes.grad is None
+
+
+# ------------------------------ K2's bf16 accumulators; ROI_ALIGN_IMPL pallas
+#
+# Tolerances. bf16 accumulators: both sides sum each RoI's window gradient in
+# f32 (in other orders) and round it into the cell once per RoI, so a cell
+# whose f32 sum lies at a rounding boundary may take the neighbouring bf16
+# value, and that step is carried into later rounds: within BF16_ACC_RTOL, 4
+# bf16 steps (2^-5) of the cell, plus BF16_ACC_ATOL = 2^-12 of the largest
+# cell (2 steps seen). Against JAX's f32 accumulators, the JAX suite's own
+# band (rtol 3e-2, atol 5e-2, tests/test_roi_align_pallas.py:147-150).
+BF16_ACC_RTOL, BF16_ACC_ATOL = 2.0**-5, 2.0**-12
+
+
+def assert_bf16_acc_close(got, want):
+    scale = max(1.0, max(float(np.abs(np.asarray(w, np.float32)).max()) for w in want))
+    for lvl, (a, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(np.asarray(a.float()), np.asarray(w, np.float32), rtol=BF16_ACC_RTOL,
+                                   atol=BF16_ACC_ATOL * scale, err_msg=f"level {lvl}")
+
+
+def test_roi_align_bwd_plain_bf16_matches_pallas_v2_bwd(rng):
+    """The pallas_bf16 mode: bf16 accumulators against
+    ``roi_align_pallas_v2_bwd(acc_dtype=bfloat16)`` in interpret mode, with
+    boxes that the window-fit rule moves up a level (the TPU kernel's levels)."""
+    B, R, C = 2, 16, 32
+    boxes = np.clip(roi_boxes(rng, B, R), 0, np.asarray([IMG_W, IMG_H, IMG_W, IMG_H], np.float32))
+    levels = port_roi.assign_levels_window_fit(t(boxes), STRIDES)
+    assert bool((levels != port_roi.assign_levels(t(boxes))).any())
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    feats = [jnp.zeros((B, h, w, C), jnp.float32) for h, w in LEVEL_HW]
+    want = roi_align_pallas_v2_bwd(feats, jnp.asarray(boxes), jnp.asarray(g), STRIDES, interpret=True,
+                                   acc_dtype=jnp.bfloat16)
+    want32 = roi_align_pallas_v2_bwd(feats, jnp.asarray(boxes), jnp.asarray(g), STRIDES, interpret=True)
+    got = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES, acc_dtype=torch.bfloat16)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    assert_bf16_acc_close(got, want)
+    for a, w in zip(got, want32):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(w), rtol=3e-2, atol=5e-2)
+    # the wrapper takes the plain version for CPU tensors
+    for a, b in zip(port_roi.roi_align_bwd_bf16(t(g), t(boxes), levels, LEVEL_HW, STRIDES), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bwd_impl", ["pallas", "pallas_bf16"])
+def test_pool_features_pallas_impl_matches_jax(rng, bwd_impl):
+    """TPU.ROI_ALIGN_IMPL pallas: window-fit levels for K1 and K2. Forward
+    and backward against JAX's ``pool_features(impl="pallas")`` (both v2
+    kernels in interpret mode) on boxes the rule moves up a level. Forward at
+    the kernel's tolerance; the feature gradients are accumulators rounded
+    to bf16 on both sides: f32 accumulators within one bf16 step (rtol 2^-7,
+    plus 1e-5 scaled), bf16 accumulators as above."""
+    B, R, C = 2, 16, 16
+    boxes = np.clip(roi_boxes(rng, B, R), 0, np.asarray([IMG_W, IMG_H, IMG_W, IMG_H], np.float32))
+    assert bool((port_roi.assign_levels_window_fit(t(boxes), STRIDES) != port_roi.assign_levels(t(boxes))).any())
+    fpn = {f"p{i + 2}": rng.randn(B, h, w, C).astype(np.float32) for i, (h, w) in enumerate(LEVEL_HW)}
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    run = lambda fs: jax_heads.pool_features(fs, jnp.asarray(boxes), impl="pallas", bwd_impl=bwd_impl)
+    want, vjp = jax.vjp(run, {k: jnp.asarray(v) for k, v in fpn.items()})
+    (want_grads,) = vjp(jnp.asarray(g))
+
+    feats = {k: t(v).permute(0, 3, 1, 2).requires_grad_(True) for k, v in fpn.items()}
+    got = port_heads.pool_features(feats, t(boxes), impl="pallas", bwd_impl=bwd_impl)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+    got.backward(t(g))
+    grads = [feats[k].grad.permute(0, 2, 3, 1) for k in sorted(fpn)]
+    wants = [want_grads[k] for k in sorted(fpn)]
+    if bwd_impl == "pallas_bf16":
+        assert_bf16_acc_close(grads, wants)
+    else:
+        scale = max(1.0, max(float(np.abs(np.asarray(w)).max()) for w in wants))
+        for a, w in zip(grads, wants):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2.0**-7, atol=1e-5 * scale)
+    # the fault this repairs: gather levels pool the bumped boxes elsewhere
+    gather = port_heads.pool_features({k: v.detach() for k, v in feats.items()}, t(boxes), impl="gather")
+    assert float((gather - got.detach()).abs().max()) > 0.1
 
 
 # --------------------------------------------- RPN targets, ROI sampling
@@ -394,8 +470,10 @@ def test_spec_id_map_matches_jax_and_unported_options_raise():
     spec = port_det.ModelSpec.from_cfg(cfg)
     want = jax_det.opendet_id_map(spec.num_classes, spec.num_known_classes)
     assert spec.id_map == tuple(int(x) for x in want) and spec.freeze_at == 2
-    cfg.TPU.ROI_ALIGN_BWD = "pallas_bf16"
-    with pytest.raises(NotImplementedError, match="pallas_bf16"):
+    cfg.TPU.ROI_ALIGN_BWD = "pallas_bf16"  # ported: bf16 accumulators
+    assert port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg)).spec.roi_align_bwd == "pallas_bf16"
+    cfg.TPU.ROI_SAMPLING_RATIO = -1
+    with pytest.raises(NotImplementedError, match="adaptive"):
         port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg))
     cfg.OPENDET_BENCHMARK = False
     with pytest.raises(NotImplementedError, match="data slice"):
@@ -492,3 +570,27 @@ def test_sgd_matches_optax(rng, clip):
             want = np.asarray(leaf(params, leaves[name]))
             np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6, atol=1e-7)
     assert schedule(0) < schedule(1) < 0.05 and schedule(2) == pytest.approx(0.005)
+
+
+def test_production_schedule_matches_jax():
+    """configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml: batch 16, lr 0.02,
+    warm-up over 100 steps, decays at 21k and 29k; the port's learning rate
+    of every step equals JAX's, and the frozen stem stays out of the update."""
+    def cfg_of(get_default_cfg):
+        cfg = get_default_cfg()
+        cfg.merge_from_file("configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml")
+        return cfg
+
+    cfg = cfg_of(port_cfg)
+    assert (cfg.SOLVER.IMS_PER_BATCH, cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS) == (16, 0.02, 100)
+    assert tuple(cfg.SOLVER.STEPS) == (21000, 29000)
+    jparams = {"backbone": {"stem_conv": {"kernel": np.zeros((3, 4), np.float32)}},
+               "box_head": {"kernel": np.zeros((6,), np.float32)}}
+    _, sched = jax_opt.build_optimizer(cfg_of(jax_cfg), jparams)
+    model = TinyModel({("stem_conv", "weight"): (3, 4), ("box_head", "weight"): (6,)})
+    _, schedule, trainable = port_opt.build_optimizer(cfg, model)
+    assert len(trainable) == 1 and not model.backbone.stem_conv.weight.requires_grad
+    for step in (0, 1, 50, 99, 100, 101, 20999, 21000, 28999, 29000, 31999):
+        assert schedule(step) == float(sched(step)), step
+    assert schedule(100) == pytest.approx(0.02) and schedule(21000) == pytest.approx(0.002)
+    assert schedule(29000) == pytest.approx(0.0002) and schedule(0) < schedule(50) < schedule(100)
