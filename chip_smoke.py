@@ -10,6 +10,7 @@ In order it
   3. roi_align (K1): the kernel against its plain PyTorch version at the
      serving shapes (B=8, R=4273 RoIs per image, C=256, bf16 P2-P5 of an
      832x1344 canvas), elementwise within atol 2e-5 + rtol 1e-5, and times both;
+     times it again at the train_bf16 shapes (B=16, R=512);
   4. nms_keep (K4): the kernel against its plain version at B=8 x N=2000 and
      N=1000 (dense overlapping boxes, ~20% invalid), exactly, and times both;
   5. iou_match (K3): the fused IoU+matcher kernel against its plain version
@@ -25,8 +26,10 @@ In order it
      step; prints how many RoIs the rule moved up a level;
   8. roi_align_bwd_bf16 (K2, pallas_bf16): bf16 accumulators at B=16 x 512
      RoIs, C=256, against the plain version (4 bf16 steps of the cell plus
-     2^-7 of the largest) and against the f32 kernel (the JAX suite's band);
-     prints the accumulators' bytes;
+     2^-7 of the largest) and against the f32 kernel (the JAX suite's band),
+     two launches bitwise equal; on uniform boxes and on boxes clustered
+     around 20 GT boxes per image (as the ROI sampler draws them), both
+     timed; prints the accumulators' bytes;
   9. references: the serving path and one training step on the GPU against
      the same seeded model on the CPU (plain versions) on a 2x64x96 batch:
      f32 (configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml), bf16
@@ -76,9 +79,12 @@ TRAIN_BATCH = 4                   # SOLVER.IMS_PER_BATCH of the config
 TRAIN_BATCH_BF16 = 16             # SOLVER.IMS_PER_BATCH of the production config
 TRAIN_ROIS = 512                  # MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
 BWD_TOL = 1e-5                    # RoIAlign backward kernel vs plain, scaled by max(1, max|want|)
-# bf16 accumulators, kernel vs plain: each RoI's f32 window sum is rounded
-# into its cells once on both sides, but a cell's RoIs arrive in another
-# order: 4 bf16 steps of the cell plus 2^-7 of the largest cell
+# bf16 accumulators, kernel vs plain: both round each RoI's f32 window sum
+# into its cells once, RoI after RoI in index order, but the kernel sums the
+# window in the TPU kernel's separable order and the plain version in an
+# index_add_, so a window sum may differ in its last bits and round the other
+# way: 4 bf16 steps of the cell plus 2^-7 of the largest cell (a loose limit;
+# PERF.md gives the errors measured against it)
 BF16_ACC_RTOL, BF16_ACC_ATOL = 2.0**-5, 2.0**-7
 BF16_STEP = 2.0**-7               # one bf16 rounding step, relative (K5 with bf16 features)
 REF_TOL = 1e-3                    # GPU vs CPU in f32, scaled by max(1, |want|)
@@ -137,6 +143,16 @@ def roi_boxes(torch, g, B, R, dev):
     return boxes.contiguous()
 
 
+def clustered_boxes(torch, g, B, R, dev):
+    """RoIs jittered around the 20 GT boxes per image of ``bench_batch``, as
+    the ROI sampler draws them around the GT: many RoIs over the same cells."""
+    gt = bench_batch(torch, B, 20).gt.boxes.to(dev)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)
+    base = torch.gather(gt, 1, (u(B, R) * 20).long()[..., None].expand(B, R, 4))
+    side = (base[..., 2:] - base[..., :2]).repeat(1, 1, 2)
+    return (base + (u(B, R, 4) - 0.5) * 0.4 * side).contiguous()
+
+
 def phase_roi_align(torch, dev):
     from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
 
@@ -163,11 +179,27 @@ def phase_roi_align(torch, dev):
     bytes_moved = got.numel() * 4 + sum(f.numel() * 2 for f in feats) + boxes.numel() * 4 + levels.numel() * 4
     bound_ms, bound_by = bound(bytes_moved, got.numel() * ROI_FLOPS_PER_OUTPUT)
     print(f"roi_align: B={BATCH} R={R} C={C} RoIs per level {per_level}; max abs err {max_abs:.3e}, "
-          f"max rel err {max_rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {bytes_moved / 1e9:.3f} GB)", flush=True)
+          f"max rel err {max_rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bytes_moved / 1e9:.3f} GB)", flush=True)
+    del got, want, err
+    # the train_bf16 shapes: B=16, R=512, the boxes of phase_roi_align_bwd_bf16
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, R = TRAIN_BATCH_BF16, TRAIN_ROIS
+    feats = [torch.randn(B, math.ceil(H / s), math.ceil(W / s), C, generator=g, device=dev).to(torch.bfloat16)
+             for s in STRIDES]
+    boxes = roi_boxes(torch, g, B, R, dev)
+    levels = assign_levels(boxes)
+    got = roi_align(feats, boxes, levels, STRIDES)
+    train_err = float((got - roi_align_plain(feats, boxes, levels, STRIDES)).abs().max())
+    check(train_err <= ATOL, f"roi_align kernel vs plain at the train shapes: max abs {train_err}")
+    train_ms = time_ms(torch, lambda: roi_align(feats, boxes, levels, STRIDES), 20)
+    train_bytes = got.numel() * 4 + sum(f.numel() * 2 for f in feats) + boxes.numel() * 4 + levels.numel() * 4
+    train_bound, _ = bound(train_bytes, got.numel() * ROI_FLOPS_PER_OUTPUT)
+    print(f"roi_align at the train_bf16 shapes: B={B} R={R} C={C}; max abs err {train_err:.3e}; kernel "
+          f"{train_ms:.4f} ms, bound {train_bound:.4f} ms ({train_bytes / 1e9:.3f} GB)", flush=True)
     return dict(name="roi_align_fwd", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_fwd.cu",
                 replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:269", max_abs_err=max_abs,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                train_shapes=dict(ms=train_ms, bound_ms=train_bound, max_abs_err=train_err))
 
 
 def nms_case(torch, g, N, dev):
@@ -667,7 +699,8 @@ def phase_roi_align_window(torch, dev):
         name = str(dtype).replace("torch.", "")
         print(f"roi_align_window ({name} features): B={BATCH} R={R} C={C}, {bumped} RoIs moved up a level by "
               f"the window-fit rule; max abs err {max_abs:.3e} (limit {atol} + {rtol} * |want|); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bytes_moved / 1e9:.3f} GB)", flush=True)
+              f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bytes_moved / 1e9:.3f} GB)", flush=True)
         figures = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None)
         if dtype == torch.float32:
@@ -713,6 +746,25 @@ def phase_roi_align_bwd_bf16(torch, dev):
               f"roi_align_bwd_bf16 kernel vs plain: max abs {float(err.max())}")
         check(bool(((a.float() - f).abs() <= 5e-2 + 3e-2 * f.abs()).all()),
               "roi_align_bwd_bf16 kernel vs the f32 kernel: outside rtol 3e-2, atol 5e-2")
+    again = roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES, P, S)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "roi_align_bwd_bf16: two launches differ")
+    del again, f32
+    # RoIs clustered around 20 GT boxes per image: hot tiles
+    boxes_c = clustered_boxes(torch, g, B, R, dev)
+    levels_c = assign_levels(boxes_c)
+    got_c = roi_align_bwd_bf16(cot, boxes_c, levels_c, level_hw, STRIDES, P, S)
+    want_c = roi_align_bwd_plain(cot, boxes_c, levels_c, level_hw, STRIDES, P, S, acc_dtype=torch.bfloat16)
+    again = roi_align_bwd_bf16(cot, boxes_c, levels_c, level_hw, STRIDES, P, S)
+    check(all(torch.equal(a, b) for a, b in zip(got_c, again)), "roi_align_bwd_bf16 (clustered): two launches differ")
+    scale_c = max(1.0, max(float(w.float().abs().max()) for w in want_c))
+    max_abs_c = 0.0
+    for a, w in zip(got_c, want_c):
+        err = (a.float() - w.float()).abs()
+        max_abs_c = max(max_abs_c, float(err.max()))
+        check(bool((err <= BF16_ACC_ATOL * scale_c + BF16_ACC_RTOL * w.float().abs()).all()),
+              f"roi_align_bwd_bf16 (clustered) kernel vs plain: max abs {float(err.max())}")
+    del got_c, want_c, again
+    clustered_ms = time_ms(torch, lambda: roi_align_bwd_bf16(cot, boxes_c, levels_c, level_hw, STRIDES, P, S), 20)
     ms = time_ms(torch, lambda: roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
     f32_ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
     plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S,
@@ -724,12 +776,17 @@ def phase_roi_align_bwd_bf16(torch, dev):
     print(f"roi_align_bwd_bf16: B={B} R={R} C={C} RoIs per level {per_level}; bf16 accumulators "
           f"{acc_bytes / 1e9:.3f} GB (f32: {2 * acc_bytes / 1e9:.3f} GB); max abs err vs plain {max_abs:.3e} "
           f"(limit {BF16_ACC_ATOL * scale:.3e} + {BF16_ACC_RTOL} * |want|, worst excess over the relative part "
-          f"{max_excess:.3e}); kernel {ms:.4f} ms, f32 kernel at these shapes {f32_ms:.4f} ms, plain "
+          f"{max_excess:.3e}); two launches bitwise equal; kernel {ms:.4f} ms, f32 kernel at these shapes {f32_ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e9:.3f} GB)", flush=True)
+    print(f"roi_align_bwd_bf16, RoIs clustered around 20 GT boxes per image: RoIs per level "
+          f"{torch.bincount(levels_c.flatten().long(), minlength=4).tolist()}; max abs err vs plain {max_abs_c:.3e} "
+          f"(limit {BF16_ACC_ATOL * scale_c:.3e} + {BF16_ACC_RTOL} * |want|); two launches bitwise equal; kernel "
+          f"{clustered_ms:.4f} ms", flush=True)
     return dict(name="roi_align_bwd_bf16", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                 replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", max_abs_err=max_abs,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                f32_kernel_ms_same_shapes=f32_ms)
+                f32_kernel_ms_same_shapes=f32_ms,
+                clustered=dict(ms=clustered_ms, max_abs_err=max_abs_c))
 
 
 def profile_step(torch, step):

@@ -10,8 +10,9 @@
 //
 // Inputs: the cotangent (B*R, P, P, C) f32; boxes (B*R, 4) f32 xyxy; levels
 // (B*R,) int32 in [0, 4). Output: four per-level accumulators
-// (B, H_l, W_l, C), zeroed by the caller, who rounds them to the features'
-// type.
+// (B, H_l, W_l, C), which the caller rounds to the features' type. The f32
+// kernel adds into accumulators the caller zeroed; the bf16 kernel writes
+// every cell itself.
 //
 // roi_align_bwd, f32 accumulators (TPU.ROI_ALIGN_BWD pallas): one block per
 // RoI, threads along C, the sample geometry of the RoI's y and x axes in
@@ -23,34 +24,59 @@
 // image overlap and run in parallel, so the adds are atomic and their order,
 // and so the f32 rounding of each cell's sum, changes from run to run (a
 // tolerance, not bitwise equality, against the plain version). Samples
-// outside the map (in_range 0) add nothing and are skipped.
+// outside the map (in_range 0) add nothing and are skipped. Bound: bytes,
+// the cotangent read and the f32 accumulators written.
 //
 // roi_align_bwd_bf16, bf16 accumulators (TPU.ROI_ALIGN_BWD pallas_bf16): the
 // TPU kernel sums each RoI's window gradient in f32 and adds it to the bf16
 // accumulator window in one read-add-write (roi_align_v2.py:444-451), so
-// every (RoI, cell, channel) contribution is rounded to bf16 once. Here one
-// block takes one RoI and a slice of 16 channels. Sample positions along an
-// axis are monotone, so the RoI touches at most 2*P*S distinct rows and
-// columns (28 at P=7, S=2); the block compacts them (a sample's upper
-// neighbour is often the next one's lower) and keeps the window gradient
-// over those rows x columns in shared memory, f32, at most 28*28*16*4 =
-// 50 KB. It runs the TPU kernel's separable transpose in the TPU kernel's
-// order, d(x-interp) then d(y-interp), samples sub-sample-major, so the f32
-// window sums are the TPU kernel's, operation for operation. Then one CAS per
-// touched cell and channel pair adds the pair to the bf16x2 word in f32 and
-// rounds once: the TPU kernel's semantics. (A native bf16x2 atomicAdd would
-// round the f32 sum to bf16 before the add as well: a second rounding.)
-// RoIs of one image run in parallel, so the order of the roundings at a cell
-// differs from the TPU grid's and from the plain version's, and the card
-// compares by tolerance.
+// every (RoI, cell, channel) contribution is rounded to bf16 once, and a
+// cell sees its image's RoIs in index order (the image-interleaved grid,
+// roi_align_v2.py:527-539).
 //
-// Bound on the H100: bytes. The cotangent read (B*R*P*P*C*4, ~103 MB at
-// B=4, R=512, C=256) and the accumulators written (~380 MB of f32, ~190 MB
-// of bf16, for P2-P5 of an 832x1344 batch of 4); the ~4*S*S adds per
-// cotangent value are far below the f32 rate. The f32 kernel makes no
-// attempt to merge the adds of neighbouring samples that hit one cell before
-// they reach memory; the bf16 kernel merges them in shared memory, and
-// waits on each CAS.
+// Bound on the H100: bytes. At B=16, R=512, C=256 on the 832x1344 pyramid
+// the cotangent read is 0.411 GB and the bf16 accumulators written 0.760 GB:
+// 0.350 ms at 3.35 TB/s. A scatter into bf16 words needs a CAS loop per
+// cell and channel pair, each waiting its round trip to L2, and leaves the
+// order of a cell's roundings to the scheduler.
+//
+// Design (the times of this design and of the variants tried are in
+// PERF.md): a gather, with owners instead of atomics. One block owns one tile
+// of 8 x 16 cells of one (image, level) and a slice of 256 channels (all of
+// them at C = 256); each of its 1024 threads owns 4 cells x 8 channels, their
+// bf16 accumulators held in registers as packed bf16x2.
+//   * The block scans its image's R RoIs in index order, 1024 at a time, and
+//     keeps (warp ballot, then a prefix over the warps) those of its level
+//     whose touched cells meet the tile. Sample positions are monotone in the
+//     sample index, so the two end samples of each axis, computed by the
+//     forward's own geometry, bound the touched rows and columns. The kept
+//     list is in ascending RoI order by construction; nothing is sorted.
+//   * Kept RoIs go in rounds of 8: the sample geometry of all 8 (the
+//     forward's operations), then, per RoI and per tile row and column, the
+//     list of (bin, weight) entries that reach it, in the TPU kernel's
+//     sample order (sub-sample-major, the lower neighbour's entry before the
+//     upper one's, so an edge-clamped neighbour takes two separate adds,
+//     roi_align_v2.py:414-442). Three barriers per round, not per RoI.
+//   * Each thread computes its cells' f32 window gradient exactly as the TPU
+//     kernel does, d(x-interp) over the column's entries, then d(y-interp)
+//     over the row's entries, reading the cotangent (scaled by 1/count)
+//     through L1, and applies acc = bf16(f32(acc) + win) in registers, RoI
+//     after RoI. Cells a RoI does not touch are skipped (acc + 0 == acc).
+//   * At the end the block writes its tile once with 16-byte stores, zeros
+//     included, so the caller allocates without zeroing.
+// Deterministic: there are no atomics, and every cell applies its image's
+// RoIs in index order, the TPU's order, so two launches are bitwise equal.
+// The f32 window sums follow the TPU kernel's order, operation for
+// operation; the plain version sums them in another order, so the card
+// compares against it by tolerance.
+//
+// Why 1024 threads over all 256 channels: every block repeats the scan and
+// the rounds' geometry for its tile, so narrower channel slices multiply
+// that work; the cotangent is read through L1 rather than staged, since a
+// round's 8 RoIs x 49 bins x 256 channels would not fit shared memory. The
+// cost is that one block fills an SM's registers, so nothing overlaps a
+// block's barrier phases, and a cell under a small RoI walks up to
+// (2*P*S)^2 entries while the rest of the block waits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,163 +162,245 @@ __global__ void roi_align_bwd_kernel(Levels lv, const float* __restrict__ boxes,
   }
 }
 
+// ------------------------------------------------------------ bf16 accumulators
 
-constexpr int kSlice = 16;             // channels per block of the bf16 kernel
-constexpr int kMaxPS = 16;             // its out_size * sampling_ratio
-constexpr int kMaxIdx = 2 * kMaxPS;    // distinct neighbour indices per axis
+constexpr int kTileH = 8;    // cells per tile: rows
+constexpr int kTileW = 16;   // and columns
+constexpr int kLists = kTileH + kTileW;  // entry lists per RoI: tile rows, then tile columns
+constexpr int kCSlice = 256;  // channels per block
+constexpr int kVec = 8;       // channels per thread: one 16-byte bf16 store
+constexpr int kThreads = 1024;
+constexpr int kGroups = kCSlice / kVec;                     // 32
+constexpr int kOwners = kThreads / kGroups;                 // 32
+constexpr int kCellsPerThread = kTileH * kTileW / kOwners;  // 4
+constexpr int kRoiGroup = 8;                                // kept RoIs prepared per round
+constexpr int kMaxPS = 16;                                  // out_size * sampling_ratio
+constexpr int kMaxEntries = 2 * kMaxPS;                     // (bin, weight) entries of a row or column
 
 struct LevelsBf16 {
   __nv_bfloat16* acc[kLevels];
   int h[kLevels];
   int w[kLevels];
   float inv_stride[kLevels];
+  int tiles_x[kLevels];
+  int tile_start[kLevels + 1];  // each level's first tile within an image; [kLevels]: tiles per image
 };
 
-// acc = bf16(f32(acc) + v) on both halves of a bf16x2 word, one rounding each.
-__device__ __forceinline__ void add_bf16x2(__nv_bfloat162* p, float v0, float v1) {
-  unsigned int* word = reinterpret_cast<unsigned int*>(p);
-  unsigned int old = __ldcg(word);
-  while (true) {
-    __nv_bfloat162 cur = *reinterpret_cast<__nv_bfloat162*>(&old);
-    __nv_bfloat162 sum = __floats2bfloat162_rn(__low2float(cur) + v0, __high2float(cur) + v1);
-    const unsigned int want = *reinterpret_cast<unsigned int*>(&sum);
-    const unsigned int seen = atomicCAS(word, old, want);
-    if (seen == old) return;
-    old = seen;
-  }
+struct Sample {
+  int lo, hi;  // floor neighbour, min(floor + 1, extent - 1)
+  float frac, ok;
+};
+
+// sample idx of the axis [lo, hi]: the forward kernel's geometry, operation
+// for operation
+__device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, int idx, int extent) {
+  const float bin = (hi - lo) / (float)P;
+  const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
+  float v = lo + in_bins * bin;
+  const float ext = (float)extent;
+  Sample s;
+  s.ok = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
+  v = fminf(fmaxf(v, 0.0f), ext - 1.0f);
+  const float v0 = floorf(v);
+  const float v1 = fminf(v0 + 1.0f, ext - 1.0f);
+  s.lo = (int)v0;
+  s.hi = (int)v1;
+  s.frac = v - v0;
+  return s;
 }
 
-__global__ void roi_align_bwd_bf16_kernel(LevelsBf16 lv, const float* __restrict__ boxes,
-                                          const int* __restrict__ levels,
-                                          const float* __restrict__ cot, int R, int C, int P,
-                                          int S) {
-  extern __shared__ float s_dyn[];       // window [ny][nx][kSlice], then cotangent [P*P][kSlice]
-  __shared__ int s_lo[2][kMaxPS];        // [axis][sample], samples bin-major as the forward's
-  __shared__ int s_hi[2][kMaxPS];
-  __shared__ float s_frac[2][kMaxPS];
-  __shared__ float s_ok[2][kMaxPS];
-  __shared__ int s_cand[2][kMaxIdx];     // candidate 2i: sample i's lower neighbour, 2i+1: upper
-  __shared__ int s_first[2][kMaxIdx];    // 1 if no earlier candidate has the same index
-  __shared__ int s_slot[2][kMaxIdx];     // candidate -> compact slot (rank among distinct)
-  __shared__ int s_val[2][kMaxIdx];      // slot -> row / column
-  __shared__ int s_n[2];                 // distinct rows, columns
-  __shared__ int s_xstart[kMaxIdx + 1];  // column slot -> its (sample, weight) entries, CSR
-  __shared__ int s_xq[kMaxIdx];          // entry: x sample
-  __shared__ float s_xw[kMaxIdx];        // entry: its weight
+// kVec cotangent values / count from p: two 16-byte loads when vec, else
+// masked scalar loads, zero beyond n
+__device__ __forceinline__ void load_cot(const float* p, int n, bool vec, float inv_count, float* out) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) out[v] = v < n ? __ldg(p + v) : 0.0f;
+  }
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
+}
 
-  const int roi = blockIdx.x;
-  const int c0 = blockIdx.y * kSlice;
-  const int b = roi / R;
-  const int l = levels[roi];
+__device__ __forceinline__ float lo_f32(unsigned int w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f32(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned int*>(&h);
+}
+
+__global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
+    LevelsBf16 lv, const float* __restrict__ boxes, const int* __restrict__ levels,
+    const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
+  __shared__ int s_keep[kThreads];           // kept RoIs of the chunk, ascending
+  __shared__ int s_warp[kThreads / 32 + 1];  // kept per warp -> prefix; [last]: total
+  // [RoI of the round][axis][sample], samples bin-major as the forward's
+  __shared__ int s_lo[kRoiGroup][2][kMaxPS];
+  __shared__ int s_hi[kRoiGroup][2][kMaxPS];
+  __shared__ float s_frac[kRoiGroup][2][kMaxPS];
+  __shared__ float s_ok[kRoiGroup][2][kMaxPS];
+  // [RoI of the round][tile row, then tile column]: entries reaching it
+  __shared__ int s_n[kRoiGroup][kLists];
+  __shared__ unsigned char s_bin[kRoiGroup][kLists][kMaxEntries];  // entry: the sample's bin on that axis
+  __shared__ float s_wt[kRoiGroup][kLists][kMaxEntries];           // entry: its weight * in_range
+
+  const int per_image = lv.tile_start[kLevels];
+  const int b = blockIdx.x / per_image;
+  int tile = blockIdx.x % per_image;
+  int l = 0;
+  while (l + 1 < kLevels && tile >= lv.tile_start[l + 1]) ++l;
+  tile -= lv.tile_start[l];
   const int H = lv.h[l];
   const int W = lv.w[l];
-  const int PS = P * S;
+  const int ty0 = (tile / lv.tiles_x[l]) * kTileH;
+  const int tx0 = (tile % lv.tiles_x[l]) * kTileW;
   const int t = threadIdx.x;
+  const int grp = t % kGroups, owner = t / kGroups;
+  const int c = blockIdx.y * kCSlice + grp * kVec;
+  const int n = min(kVec, C - c);  // this thread's channels; <= 0: none
+  const int PS = P * S;
+  const float scale = lv.inv_stride[l];
+  const float inv_count = 1.0f / (float)(S * S);
+  const int lane = t & 31, warp = t >> 5;
 
-  if (t < 2 * PS) {  // the forward kernel's geometry, operation for operation
-    const int axis = t < PS ? 0 : 1;  // 0: y, 1: x
-    const int idx = t - axis * PS;
-    const float scale = lv.inv_stride[l];
-    const float* bx = boxes + 4 * (size_t)roi;
-    const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
-    const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
-    const float bin = (hi - lo) / (float)P;
-    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
-    float v = lo + in_bins * bin;
-    const float ext = (float)(axis == 0 ? H : W);
-    s_ok[axis][idx] = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
-    v = fminf(fmaxf(v, 0.0f), ext - 1.0f);
-    const float v0 = floorf(v);
-    const float v1 = fminf(v0 + 1.0f, ext - 1.0f);
-    s_lo[axis][idx] = (int)v0;
-    s_hi[axis][idx] = (int)v1;
-    s_frac[axis][idx] = v - v0;
-  }
-  __syncthreads();
-  const int n_cand = 2 * PS;
-  const int axis = t / n_cand, k = t % n_cand;  // one candidate per thread, both axes
-  if (t < 2 * n_cand) s_cand[axis][k] = (k & 1) ? s_hi[axis][k >> 1] : s_lo[axis][k >> 1];
-  __syncthreads();
-  if (t < 2 * n_cand) {
-    int first = 1;
-    for (int j = 0; j < k; ++j) first &= s_cand[axis][j] != s_cand[axis][k];
-    s_first[axis][k] = first;
-  }
-  __syncthreads();
-  if (t < 2 * n_cand) {
-    int slot = 0, n = 0;
-    for (int j = 0; j < n_cand; ++j) {
-      slot += s_first[axis][j] && s_cand[axis][j] < s_cand[axis][k];
-      n += s_first[axis][j];
+  // the owned cells' bf16 accumulators, channel pairs packed as bf16x2
+  unsigned int acc[kCellsPerThread][kVec / 2];
+#pragma unroll
+  for (int i = 0; i < kCellsPerThread; ++i)
+#pragma unroll
+    for (int v = 0; v < kVec / 2; ++v) acc[i][v] = 0u;
+
+  for (int chunk = 0; chunk < R; chunk += kThreads) {
+    // keep the chunk's RoIs of this level whose touched cells meet the tile
+    const int r = chunk + t;
+    bool hit = false;
+    if (r < R && levels[b * R + r] == l) {
+      const float* bx = boxes + 4 * ((size_t)b * R + r);
+      const float ylo = bx[1] * scale - 0.5f, yhi = bx[3] * scale - 0.5f;
+      const float xlo = bx[0] * scale - 0.5f, xhi = bx[2] * scale - 0.5f;
+      const Sample ya = sample_at(ylo, yhi, P, S, 0, H), yb = sample_at(ylo, yhi, P, S, PS - 1, H);
+      const Sample xa = sample_at(xlo, xhi, P, S, 0, W), xb = sample_at(xlo, xhi, P, S, PS - 1, W);
+      hit = max(ya.hi, yb.hi) >= ty0 && min(ya.lo, yb.lo) < ty0 + kTileH &&
+            max(xa.hi, xb.hi) >= tx0 && min(xa.lo, xb.lo) < tx0 + kTileW;
     }
-    s_slot[axis][k] = slot;
-    if (s_first[axis][k]) s_val[axis][slot] = s_cand[axis][k];
-    if (k == 0) s_n[axis] = n;
-  }
-  __syncthreads();
-  const int ny = s_n[0], nx = s_n[1];
-  if (t == 0) {  // each column slot's x-interpolation entries, in the TPU kernel's sample order
-    for (int j = 0; j <= nx; ++j) s_xstart[j] = 0;
-    for (int k2 = 0; k2 < n_cand; ++k2) s_xstart[s_slot[1][k2] + 1] += 1;
-    for (int j = 0; j < nx; ++j) s_xstart[j + 1] += s_xstart[j];
-    int fill[kMaxIdx];
-    for (int j = 0; j < nx; ++j) fill[j] = s_xstart[j];
-    for (int a = 0; a < S; ++a) {
-      for (int qb = 0; qb < P; ++qb) {
-        const int q = qb * S + a;
-        const float lx = s_frac[1][q], ok = s_ok[1][q];
-        const int e0 = fill[s_slot[1][2 * q]]++;
-        s_xq[e0] = q;
-        s_xw[e0] = (1.0f - lx) * ok;
-        const int e1 = fill[s_slot[1][2 * q + 1]]++;
-        s_xq[e1] = q;
-        s_xw[e1] = lx * ok;
+    const unsigned int mask = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    if (t == 0) {
+      int sum = 0;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int k = s_warp[w];
+        s_warp[w] = sum;
+        sum += k;
       }
+      s_warp[kThreads / 32] = sum;
     }
-  }
-  float* s_win = s_dyn;
-  float* s_cot = s_dyn + (size_t)ny * nx * kSlice;
-  const float inv_count = 1.0f / (float)(S * S);  // d(mean), as the TPU kernel scales the cotangent
-  const float* g = cot + (size_t)roi * P * P * C;
-  for (int i = t; i < P * P * kSlice; i += blockDim.x) {
-    const int c = c0 + i % kSlice;
-    s_cot[i] = c < C ? g[(size_t)(i / kSlice) * C + c] * inv_count : 0.0f;
-  }
-  for (int i = t; i < ny * nx * kSlice; i += blockDim.x) s_win[i] = 0.0f;
-  __syncthreads();
+    __syncthreads();
+    if (hit) s_keep[s_warp[warp] + __popc(mask & ((1u << lane) - 1u))] = r;
+    const int n_keep = s_warp[kThreads / 32];
+    __syncthreads();
 
-  // d(x-interp) then d(y-interp): thread (column slot xs, channel cc) owns
-  // window column xs of channel cc, so no two threads add to one value.
-  for (int task = t; task < nx * kSlice; task += blockDim.x) {
-    const int xs = task / kSlice, cc = task % kSlice;
-    for (int a = 0; a < S; ++a) {
-      for (int pb = 0; pb < P; ++pb) {
-        const int p = pb * S + a;
-        float dt1 = 0.0f;
-        for (int e = s_xstart[xs]; e < s_xstart[xs + 1]; ++e)
-          dt1 = dt1 + s_cot[(pb * P + s_xq[e] / S) * kSlice + cc] * s_xw[e];
-        const float ly = s_frac[0][p], ok = s_ok[0][p];
-        float* w0 = s_win + ((size_t)s_slot[0][2 * p] * nx + xs) * kSlice + cc;
-        *w0 = *w0 + dt1 * ((1.0f - ly) * ok);
-        float* w1 = s_win + ((size_t)s_slot[0][2 * p + 1] * nx + xs) * kSlice + cc;
-        *w1 = *w1 + dt1 * (ly * ok);
+    for (int k0 = 0; k0 < n_keep; k0 += kRoiGroup) {
+      const int kg = min(kRoiGroup, n_keep - k0);
+      // the round's sample geometry: one sample of one axis of one RoI per thread
+      if (t < kg * 2 * PS) {
+        const int k = t / (2 * PS), j = t % (2 * PS);
+        const int axis = j < PS ? 0 : 1;  // 0: y, 1: x
+        const int idx = j - axis * PS;
+        const float* bx = boxes + 4 * ((size_t)b * R + s_keep[k0 + k]);
+        const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
+        const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
+        const Sample s = sample_at(lo, hi, P, S, idx, axis == 0 ? H : W);
+        s_lo[k][axis][idx] = s.lo;
+        s_hi[k][axis][idx] = s.hi;
+        s_frac[k][axis][idx] = s.frac;
+        s_ok[k][axis][idx] = s.ok;
       }
+      __syncthreads();
+      // each tile row's and column's entries, in the TPU kernel's sample
+      // order: sub-sample-major, lower neighbour before upper
+      if (t < kg * kLists) {
+        const int k = t / kLists, j = t % kLists;
+        const int axis = j < kTileH ? 0 : 1;
+        const int cell = axis == 0 ? ty0 + j : tx0 + j - kTileH;
+        int m = 0;
+        for (int a = 0; a < S; ++a) {
+          for (int pb = 0; pb < P; ++pb) {
+            const int p = pb * S + a;
+            const float fr = s_frac[k][axis][p], ok = s_ok[k][axis][p];
+            if (s_lo[k][axis][p] == cell) {
+              s_bin[k][j][m] = (unsigned char)pb;
+              s_wt[k][j][m] = (1.0f - fr) * ok;
+              ++m;
+            }
+            if (s_hi[k][axis][p] == cell) {
+              s_bin[k][j][m] = (unsigned char)pb;
+              s_wt[k][j][m] = fr * ok;
+              ++m;
+            }
+          }
+        }
+        s_n[k][j] = m;
+      }
+      __syncthreads();
+      if (n > 0) {
+        for (int k = 0; k < kg; ++k) {  // the round's RoIs, in index order
+          const float* g = cot + ((size_t)b * R + s_keep[k0 + k]) * P * P * C + c;
+#pragma unroll
+          for (int i = 0; i < kCellsPerThread; ++i) {
+            const int cell = owner + i * kOwners;
+            const int ty = cell / kTileW, tx = kTileH + cell % kTileW;
+            const int ny = s_n[k][ty], nx = s_n[k][tx];
+            if (ny == 0 || nx == 0) continue;
+            float win[kVec];
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) win[v] = 0.0f;
+            for (int e = 0; e < ny; ++e) {
+              // d(x-interp) of y-bin pb at this column, then its d(y-interp)
+              const float* row = g + (size_t)s_bin[k][ty][e] * P * C;
+              float dt1[kVec];
+#pragma unroll
+              for (int v = 0; v < kVec; ++v) dt1[v] = 0.0f;
+              for (int f = 0; f < nx; ++f) {
+                float cv[kVec];
+                load_cot(row + (size_t)s_bin[k][tx][f] * C, n, vec, inv_count, cv);
+                const float wx = s_wt[k][tx][f];
+#pragma unroll
+                for (int v = 0; v < kVec; ++v) dt1[v] = dt1[v] + cv[v] * wx;
+              }
+              const float wy = s_wt[k][ty][e];
+#pragma unroll
+              for (int v = 0; v < kVec; ++v) win[v] = win[v] + dt1[v] * wy;
+            }
+#pragma unroll
+            for (int v = 0; v < kVec / 2; ++v)
+              acc[i][v] = pack_bf16x2(lo_f32(acc[i][v]) + win[2 * v], hi_f32(acc[i][v]) + win[2 * v + 1]);
+          }
+        }
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
 
-  // one read-add-round per touched cell and channel pair
-  __nv_bfloat16* acc = lv.acc[l] + (size_t)b * H * W * C;
-  constexpr int kPairs = kSlice / 2;
-  for (int i = t; i < ny * nx * kPairs; i += blockDim.x) {
-    const int cell = i / kPairs, pair = i % kPairs;
-    const int c = c0 + 2 * pair;
-    if (c >= C) continue;
-    const float v0 = s_win[(size_t)cell * kSlice + 2 * pair];
-    const float v1 = s_win[(size_t)cell * kSlice + 2 * pair + 1];
-    if (v0 == 0.0f && v1 == 0.0f) continue;  // bf16(acc + 0) == acc
-    const int row = s_val[0][cell / nx], col = s_val[1][cell % nx];
-    add_bf16x2(reinterpret_cast<__nv_bfloat162*>(acc + ((size_t)row * W + col) * C + c), v0, v1);
+  // the tile, written once
+  if (n <= 0) return;
+#pragma unroll
+  for (int i = 0; i < kCellsPerThread; ++i) {
+    const int cell = owner + i * kOwners;
+    const int y = ty0 + cell / kTileW, x = tx0 + cell % kTileW;
+    if (y >= H || x >= W) continue;
+    __nv_bfloat16* p = lv.acc[l] + (((size_t)b * H + y) * W + x) * C + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+      unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        if (v < n) q[v] = (unsigned short)((v & 1) ? acc[i][v / 2] >> 16 : acc[i][v / 2] & 0xffffu);
+    }
   }
 }
 
@@ -325,13 +433,15 @@ int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1
   return (int)cudaGetLastError();
 }
 
-// bf16 accumulators: grads are 4 NHWC bf16 level accumulators; C even and
-// P * S <= 16. Returns cudaGetLastError() after the launch (0 on success).
+// bf16 accumulators: grads are 4 NHWC bf16 level accumulators, every cell
+// written by the kernel (no zeroing needed); C even and P * S <= 16.
+// Returns cudaGetLastError() after the launch (0 on success).
 int roi_align_bwd_bf16(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1,
                        int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
                        const float* boxes, const int* levels, const float* cot, int n_rois,
                        int rois_per_image, int C, int P, int S, void* stream) {
-  if (P * S > kMaxPS || (C & 1) || n_rois <= 0) return (int)cudaErrorInvalidValue;
+  if (P < 1 || S < 1 || P * S > kMaxPS || (C & 1) || C < 2 || n_rois <= 0 || rois_per_image <= 0)
+    return (int)cudaErrorInvalidValue;
   LevelsBf16 lv;
   lv.acc[0] = (__nv_bfloat16*)g0;
   lv.acc[1] = (__nv_bfloat16*)g1;
@@ -340,14 +450,17 @@ int roi_align_bwd_bf16(void* g0, void* g1, void* g2, void* g3, int h0, int w0, i
   lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
   lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
   lv.inv_stride[0] = s0; lv.inv_stride[1] = s1; lv.inv_stride[2] = s2; lv.inv_stride[3] = s3;
-  const int n_idx = 2 * P * S;
-  const size_t smem = ((size_t)n_idx * n_idx + (size_t)P * P) * kSlice * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(roi_align_bwd_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_rois, (C + kSlice - 1) / kSlice);
-  roi_align_bwd_bf16_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      lv, boxes, levels, cot, rois_per_image, C, P, S);
+  bool vec = C % kVec == 0 && ((uintptr_t)cot % 16) == 0;
+  lv.tile_start[0] = 0;
+  for (int i = 0; i < kLevels; ++i) {
+    vec = vec && ((uintptr_t)lv.acc[i] % 16) == 0;
+    lv.tiles_x[i] = (lv.w[i] + kTileW - 1) / kTileW;
+    lv.tile_start[i + 1] = lv.tile_start[i] + lv.tiles_x[i] * ((lv.h[i] + kTileH - 1) / kTileH);
+  }
+  const int batch = n_rois / rois_per_image;
+  const dim3 grid(batch * lv.tile_start[kLevels], (C + kCSlice - 1) / kCSlice);
+  roi_align_bwd_bf16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      lv, boxes, levels, cot, rois_per_image, C, P, S, vec);
   return (int)cudaGetLastError();
 }
 

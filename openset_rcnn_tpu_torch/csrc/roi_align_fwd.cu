@@ -16,27 +16,46 @@
 // bilinear RoIAlign at the window-fit level: MAX_EXTENT guarantees that every
 // sample fits its 56x64 window, so the window changes no value. The TPU-only
 // structure (window DMA, SMEM scalar tables, CHUNK=2048) has nothing to port
-// here, and a second copy of the same bilinear loop would only drift from
-// this one; the two entry points instantiate one templated kernel. K5
+// here; the two entry points instantiate one templated kernel. K5
 // interpolates in the features' type on the TPU; here the arithmetic is f32
 // and a bf16 output is rounded once, at the end.
 //
 // Inputs: P2-P5 as NHWC (B, H_l, W_l, C) of type In; boxes (B*R, 4) f32
 // xyxy; levels (B*R,) int32 in [0, 4). Output (B*R, P, P, C) of type Out.
 //
-// Design: one block per RoI, threads along C. The first 2*P*S threads work
-// out the sample geometry of the RoI's y and x axes into shared memory
-// (positions, clamps, floor, neighbours, fractions and masks, all f32 in the
-// order of the gather path); then each thread walks the P*P bins x S*S
-// samples for its channel. Each bilinear neighbour read is one coalesced row
-// of C values across the block, and each output row of C values is written
-// once.
+// Bound on the H100: bytes. The output (B*R*P*P*C values, 1.715 GB in f32
+// at the serving shapes B=8, R=4273, C=256) dominates the feature reads
+// (0.381 GB in bf16): 0.626 ms at 3.35 TB/s. The arithmetic (~33 flops per
+// output value) is far below the f32 rate.
 //
-// Bound on the H100: bytes. The output (B*R*P*P*C values, ~1.7 GB in f32 at
-// the serving shapes) dominates the feature reads (~0.38 GB in bf16); the
-// arithmetic (~40 flops per output value) is far below the f32 rate. This
-// first version makes no attempt at the neighbour reuse between samples or at
-// TMA staging; it is the simple kernel that is right.
+// Design (the times of this design and of the variants tried are in
+// PERF.md):
+//   * A block takes one RoI. Thread (g, w): channel group g of V channels
+//     (V = 8 for bf16, 4 for f32: one 16-byte load, so a warp reads 16 bytes
+//     per lane instead of 2), worker w. One warp covers a 256-channel bf16
+//     cell in four full 128-byte lines; with more groups than a block has
+//     threads (512), a thread loops over its groups. A worker takes one bin
+//     at a time (P workers of P bins each where the channels allow), so its
+//     accumulator is V registers.
+//   * P and S are template parameters for the config's (7, 2), so the
+//     sample loops unroll and the compiler issues a bin's S*S*4 independent
+//     16-byte neighbour loads ahead of their arithmetic. One loop serves
+//     both instantiations: the generic one (runtime P and S) serves every
+//     other P*S <= 32 and is slower at (7, 2) (PERF.md).
+//   * Neighbour reuse through L1. The P workers of a block run neighbouring
+//     bins of one RoI at the same time, so a cell that several samples share
+//     is read from device memory once and from L1 after. Staging the RoI's
+//     distinct rows x columns in shared memory does not fit (up to 28 x 28
+//     cells x 512 B); a channel slice at a time would repeat the geometry
+//     per slice. Keeping the last sample's columns in registers makes every
+//     load wait on a select chain and spills.
+//   * Stores are 16-byte vectors (float4 for an f32 output).
+//   * C not a multiple of V, or an unaligned pointer, takes masked scalar
+//     loads and stores in the same kernel.
+//   * The arithmetic and its order are the first version's, sample for
+//     sample: val = g00*w00 + g01*w01 + g10*w10 + g11*w11, acc += val * ok
+//     over (sy, sx), then acc * (1 / (S*S)); with --fmad=false the result is
+//     bitwise the plain version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +64,7 @@ namespace {
 
 constexpr int kLevels = 4;
 constexpr int kMaxSamples = 32;  // out_size * sampling_ratio per axis
+constexpr int kMaxThreads = 512;
 
 template <typename In>
 struct Levels {
@@ -54,20 +74,106 @@ struct Levels {
   float inv_stride[kLevels];
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// V channels of one cell as one 16-byte vector
+template <typename T>
+struct Vec;
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+};
 
-template <typename In, typename Out>
-__global__ void roi_align_fwd_kernel(Levels<In> lv, const float* __restrict__ boxes,
-                                     const int* __restrict__ levels, int R, int C, int P,
-                                     int S, Out* __restrict__ out) {
+__device__ __forceinline__ float elem(const uint4& r, int v) {
+  const unsigned int w = (&r.x)[v >> 1];
+  return __uint_as_float((v & 1) ? (w & 0xffff0000u) : (w << 16));  // bf16 -> f32, exact
+}
+__device__ __forceinline__ float elem(const float4& r, int v) { return (&r.x)[v]; }
+
+// n valid channels from p: one 16-byte load when vec (n == N, aligned),
+// else masked scalar loads, zero beyond n
+__device__ __forceinline__ uint4 load_raw(const __nv_bfloat16* p, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+  unsigned int w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned int lo = 2 * i < n ? s[2 * i] : 0u;
+    const unsigned int hi = 2 * i + 1 < n ? s[2 * i + 1] : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ float4 load_raw(const float* p, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(0 < n ? p[0] : 0.f, 1 < n ? p[1] : 0.f, 2 < n ? p[2] : 0.f, 3 < n ? p[3] : 0.f);
+}
+
+template <int N>
+__device__ __forceinline__ void store_vals(float* p, const float* v, int n, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_vals(__nv_bfloat16* p, const float* v, int n, bool vec) {
+  if (vec) {
+    unsigned int w[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<unsigned int*>(&h);
+    }
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) q[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < n) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// acc += one sample's bilinear value * in_range, per channel, in the plain
+// version's order of operations
+template <int N, typename Raw>
+__device__ __forceinline__ void add_sample(float* acc, const Raw& g00, const Raw& g01, const Raw& g10,
+                                           const Raw& g11, float ly, float lx, float ok) {
+  const float w00 = (1.0f - ly) * (1.0f - lx);
+  const float w01 = (1.0f - ly) * lx;
+  const float w10 = ly * (1.0f - lx);
+  const float w11 = ly * lx;
+#pragma unroll
+  for (int v = 0; v < N; ++v) {
+    const float val = elem(g00, v) * w00 + elem(g01, v) * w01 + elem(g10, v) * w10 + elem(g11, v) * w11;
+    acc[v] += val * ok;
+  }
+}
+
+// kP, kS > 0: compile-time grid (the config's (7, 2)), the sample loops
+// unrolled; kP == kS == 0: the generic instantiation, runtime (P, S).
+template <typename In, typename Out, int kP, int kS>
+__global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
+    Levels<In> lv, const float* __restrict__ boxes, const int* __restrict__ levels, int R, int C,
+    int P_rt, int S_rt, int groups, int n_groups, bool vec, Out* __restrict__ out) {
+  constexpr int N = Vec<In>::N;
   __shared__ int s_lo[2][kMaxSamples];  // [axis][sample]: floor neighbour
   __shared__ int s_hi[2][kMaxSamples];  // min(floor + 1, extent - 1)
   __shared__ float s_frac[2][kMaxSamples];
   __shared__ float s_ok[2][kMaxSamples];  // 1 inside (-1, extent), else 0
 
+  const int P = kP > 0 ? kP : P_rt;
+  const int S = kS > 0 ? kS : S_rt;
   const int roi = blockIdx.x;
   const int b = roi / R;
   const int l = levels[roi];
@@ -76,9 +182,9 @@ __global__ void roi_align_fwd_kernel(Levels<In> lv, const float* __restrict__ bo
   const int PS = P * S;
   const int t = threadIdx.x;
 
-  if (t < 2 * PS) {
-    const int axis = t < PS ? 0 : 1;  // 0: y, 1: x
-    const int idx = t - axis * PS;
+  for (int i = t; i < 2 * PS; i += blockDim.x) {
+    const int axis = i < PS ? 0 : 1;  // 0: y, 1: x
+    const int idx = i - axis * PS;
     const float scale = lv.inv_stride[l];
     const float* bx = boxes + 4 * (size_t)roi;
     const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
@@ -97,36 +203,37 @@ __global__ void roi_align_fwd_kernel(Levels<In> lv, const float* __restrict__ bo
   }
   __syncthreads();
 
-  const In* f = lv.feat[l] + (size_t)b * H * W * C;
-  Out* o = out + (size_t)roi * P * P * C;
+  const int workers = blockDim.x / groups;
   const float inv_count = 1.0f / (float)(S * S);
-  for (int c = t; c < C; c += blockDim.x) {
-    for (int py = 0; py < P; ++py) {
-      for (int px = 0; px < P; ++px) {
-        float acc = 0.0f;
-        for (int sy = 0; sy < S; ++sy) {
-          const int iy = py * S + sy;
-          const int y0 = s_lo[0][iy], y1 = s_hi[0][iy];
-          const float ly = s_frac[0][iy];
-          for (int sx = 0; sx < S; ++sx) {
-            const int ix = px * S + sx;
-            const int x0 = s_lo[1][ix], x1 = s_hi[1][ix];
-            const float lx = s_frac[1][ix];
-            const float g00 = to_f32(f[((size_t)y0 * W + x0) * C + c]);
-            const float g01 = to_f32(f[((size_t)y0 * W + x1) * C + c]);
-            const float g10 = to_f32(f[((size_t)y1 * W + x0) * C + c]);
-            const float g11 = to_f32(f[((size_t)y1 * W + x1) * C + c]);
-            const float w00 = (1.0f - ly) * (1.0f - lx);
-            const float w01 = (1.0f - ly) * lx;
-            const float w10 = ly * (1.0f - lx);
-            const float w11 = ly * lx;
-            const float val = g00 * w00 + g01 * w01 + g10 * w10 + g11 * w11;
-            acc += val * (s_ok[0][iy] * s_ok[1][ix]);
-          }
-        }
-        store(o + ((size_t)py * P + px) * C + c, acc * inv_count);
+  // a thread's channel groups (one unless C > groups * N), then its bins: one
+  // bin per worker at a time, all channels of the group
+  for (int g = t % groups; g < n_groups; g += groups)
+  for (int bin = t / groups; bin < P * P; bin += workers) {
+    const int c = g * N;
+    const int n = min(N, C - c);
+    const In* f = lv.feat[l] + (size_t)b * H * W * C + c;
+    Out* o = out + (size_t)roi * P * P * C + c;
+    const int py = bin / P, px = bin % P;
+    float acc[N];
+#pragma unroll
+    for (int v = 0; v < N; ++v) acc[v] = 0.0f;
+#pragma unroll
+    for (int sy = 0; sy < S; ++sy) {
+      const int iy = py * S + sy;
+      const In* r0 = f + (size_t)s_lo[0][iy] * W * C;
+      const In* r1 = f + (size_t)s_hi[0][iy] * W * C;
+#pragma unroll
+      for (int sx = 0; sx < S; ++sx) {
+        const int ix = px * S + sx;
+        const size_t x0 = (size_t)s_lo[1][ix] * C, x1 = (size_t)s_hi[1][ix] * C;
+        add_sample<N>(acc, load_raw(r0 + x0, n, vec), load_raw(r0 + x1, n, vec), load_raw(r1 + x0, n, vec),
+                      load_raw(r1 + x1, n, vec), s_frac[0][iy], s_frac[1][ix], s_ok[0][iy] * s_ok[1][ix]);
       }
     }
+    float res[N];
+#pragma unroll
+    for (int v = 0; v < N; ++v) res[v] = acc[v] * inv_count;
+    store_vals<N>(o + (size_t)bin * C, res, n, vec);
   }
 }
 
@@ -135,7 +242,8 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h
            int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
            const float* boxes, const int* levels, int n_rois, int rois_per_image, int C, int P,
            int S, void* out, void* stream) {
-  if (P * S > kMaxSamples || n_rois <= 0) return (int)cudaErrorInvalidValue;
+  constexpr int N = Vec<In>::N;
+  if (P < 1 || S < 1 || P * S > kMaxSamples || n_rois <= 0 || C < 1) return (int)cudaErrorInvalidValue;
   Levels<In> lv;
   lv.feat[0] = (const In*)f0;
   lv.feat[1] = (const In*)f1;
@@ -144,11 +252,22 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h
   lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
   lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
   lv.inv_stride[0] = s0; lv.inv_stride[1] = s1; lv.inv_stride[2] = s2; lv.inv_stride[3] = s3;
-  int threads = ((C + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  if (threads < 2 * P * S) threads = ((2 * P * S + 31) / 32) * 32;
-  roi_align_fwd_kernel<In, Out><<<n_rois, threads, 0, (cudaStream_t)stream>>>(
-      lv, boxes, levels, rois_per_image, C, P, S, (Out*)out);
+  // 16-byte vectors need every cell row (C * size) and every base aligned
+  bool vec = C % N == 0 && ((uintptr_t)out % 16) == 0;
+  for (int i = 0; i < kLevels; ++i) vec = vec && ((uintptr_t)lv.feat[i] % 16) == 0;
+  const int n_groups = (C + N - 1) / N;
+  const int groups = n_groups < kMaxThreads ? n_groups : kMaxThreads;  // threads along C
+  const bool fixed = P == 7 && S == 2;
+  int workers = kMaxThreads / groups;  // P workers of P bins each, where the channels allow
+  if (workers > P) workers = P;
+  const int threads = groups * workers;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fixed)
+    roi_align_fwd_kernel<In, Out, 7, 2><<<n_rois, threads, 0, st>>>(
+        lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
+  else
+    roi_align_fwd_kernel<In, Out, 0, 0><<<n_rois, threads, 0, st>>>(
+        lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
   return (int)cudaGetLastError();
 }
 

@@ -464,7 +464,8 @@ def roi_align_bwd_bf16(
 ) -> List[torch.Tensor]:
     """RoIAlignV2 backward in K2's ``pallas_bf16`` mode: per-level
     (B, H_l, W_l, C) **bf16** accumulators, each RoI's f32 window gradient
-    added with one rounding per RoI. C must be even and
+    added with one rounding per RoI, a cell's RoIs in index order (so the
+    kernel's result is deterministic). C must be even and
     ``out_size * sampling_ratio`` at most 16.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
@@ -480,9 +481,10 @@ def roi_align_bwd_bf16(
     if C % 2 or P * S > 16:
         raise ValueError(f"the bf16-accumulator kernel takes an even C (channel pairs) and "
                          f"out_size * sampling_ratio <= 16, got C={C}, {P}*{S}")
-    accs = [torch.zeros((B, h, w, C), dtype=torch.bfloat16, device=boxes.device) for h, w in level_hw]
     if boxes.numel() == 0:
-        return accs
+        return [torch.zeros((B, h, w, C), dtype=torch.bfloat16, device=boxes.device) for h, w in level_hw]
+    # the kernel writes every cell, zeros included
+    accs = [torch.empty((B, h, w, C), dtype=torch.bfloat16, device=boxes.device) for h, w in level_hw]
     _launch_bwd("roi_align_bwd_bf16", accs, grad, boxes, levels, level_hw, strides, P, S)
     roi_align_bwd_bf16.launches += 1
     return accs
