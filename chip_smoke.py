@@ -12,14 +12,18 @@ In order it
      832x1344 canvas), elementwise within atol 2e-5 + rtol 1e-5, and times both;
      times it again at the train_bf16 shapes (B=16, R=512);
   4. nms_keep (K4): the kernel against its plain version at B=8 x N=2000 and
-     N=1000 (dense overlapping boxes, ~20% invalid), exactly, and times both;
+     N=1000 (dense overlapping boxes, ~20% invalid) and on the known
+     branch's class-offset shape (20 classes shifted apart, N=2000),
+     exactly; times each (CUDA events) and each of its two passes (device
+     time under torch.profiler);
   5. iou_match (K3): the fused IoU+matcher kernel against its plain version
      at the training shapes (B=4, G=100 padded GT, R=93,093 anchors of the
      832x1344 bucket), with an image without valid GT, a zero-area GT and
      integer coordinates that make IoUs tie: all four outputs exactly equal;
   6. roi_align_bwd (K2, f32 accumulators): against its plain version at
-     B=4 x 512 RoIs, C=256 on the 832x1344 pyramid, within
-     1e-5 * max(1, max|want|) (atomics reorder the sums);
+     B=4 and B=16 x 512 RoIs, C=256 on the 832x1344 pyramid, on uniform
+     boxes and on boxes clustered around the GT, within
+     1e-5 * max(1, max|want|) (atomics reorder the sums); times each;
   7. roi_align_window (K5): window-fit levels at the serving shapes, f32 and
      bf16 features, an eighth of the boxes wide and an eighth tall (aspect
      4.5 to 8.5); f32 within atol 2e-5 + rtol 1e-5, bf16 within one bf16
@@ -215,36 +219,83 @@ def nms_case(torch, g, N, dev):
     return boxes.contiguous(), valid
 
 
+def class_offset_case(torch, g, N, dev):
+    """The known branch's input: candidates of 20 classes, each class's boxes
+    shifted apart by the coordinate offset of ``batched_nms_mask``, in
+    score order; boxes of different classes never overlap, so few suppress."""
+    boxes, valid = nms_case(torch, g, N, dev)
+    cls = (torch.rand(BATCH, N, generator=g, device=dev) * 20).floor()
+    offset = boxes.amax(dim=(1, 2)) + 1.0
+    return (boxes + (cls * offset[:, None])[..., None]).contiguous(), valid
+
+
+def device_ms(torch, fn, reps, names):
+    """{name: mean device ms of one launch} of the kernels whose names
+    contain each of ``names``, over reps calls of fn() under torch.profiler
+    (launch gaps excluded; a launch the profiler lost does not count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for n in names:
+        found = [e for e in kernels if n in e.key]
+        launches = sum(e.count for e in found)
+        out[n] = sum(e.self_device_time_total for e in found) / 1e3 / launches if launches else 0.0
+    return out
+
+
 def phase_nms(torch, dev):
     from openset_rcnn_tpu_torch.ops.nms import nms_keep, nms_keep_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
-    total = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
-    for N in (2000, 1000):  # the cascade's known and unknown branches
-        boxes, valid = nms_case(torch, g, N, dev)
+    total = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, pass1_ms=0.0, pass2_ms=0.0)
+    cases = {}
+    # the cascade's known (N=2000) and unknown (N=1000) branches on dense
+    # boxes, then the known branch's class-offset shape
+    for label, N in (("dense", 2000), ("dense", 1000), ("class_offset", 2000)):
+        boxes, valid = (nms_case if label == "dense" else class_offset_case)(torch, g, N, dev)
         got = nms_keep(boxes, valid, 0.5)
         want = nms_keep_plain(boxes, valid, 0.5)
-        check(torch.equal(got, want), f"nms_keep kernel vs plain at N={N}: "
+        check(torch.equal(got, want), f"nms_keep kernel vs plain, {label} N={N}: "
               f"{int((got != want).sum())} of {got.numel()} differ")
         ms = time_ms(torch, lambda: nms_keep(boxes, valid, 0.5), 20)
+        passes = device_ms(torch, lambda: nms_keep(boxes, valid, 0.5), 20, ("nms_iou_mask", "nms_walk"))
+        p1_ms, p2_ms = passes["nms_iou_mask"], passes["nms_walk"]
+        check(p1_ms > 0 and p2_ms > 0, f"nms_keep: the profiler saw no device time for a pass: {passes}")
         plain_ms = time_ms(torch, lambda: nms_keep_plain(boxes, valid, 0.5), 2)
         # the IoU tests this data needs: each kept box against the valid boxes after it
         later_valid = valid.flip(1).cumsum(1).flip(1) - valid.long()
         tests = int(later_valid[got].sum())
         n_bytes = boxes.numel() * 4 + valid.numel() + got.numel()
         b_ms, b_by = bound(n_bytes, tests * IOU_FLOPS)
-        print(f"nms_keep: B={BATCH} N={N}: kept {int(got.sum())} of {int(valid.sum())} valid, exact; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}); "
-              f"{int(got.sum(1).max())} dependent steps in the longest image", flush=True)
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bytes"] += n_bytes
-        total["flops"] += tests * IOU_FLOPS
+        print(f"nms_keep ({label}): B={BATCH} N={N}: kept {int(got.sum())} of {int(valid.sum())} valid, exact; "
+              f"kernel {ms:.4f} ms (device time: pass 1 {p1_ms:.4f} ms, pass 2 {p2_ms:.4f} ms), "
+              f"plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}); "
+              f"{int(got.sum(1).max())} kept boxes in the longest image", flush=True)
+        if label == "dense":
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["bytes"] += n_bytes
+            total["flops"] += tests * IOU_FLOPS
+            total["pass1_ms"] += p1_ms
+            total["pass2_ms"] += p2_ms
+        else:
+            cases[label] = dict(N=N, ms=ms, pass1_ms=p1_ms, pass2_ms=p2_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                kept=int(got.sum()), valid=int(valid.sum()))
     bound_ms, bound_by = bound(total["bytes"], total["flops"])
+    print(f"nms_keep per serve batch (N=2000 + N=1000, dense): kernel {total['ms']:.4f} ms (device time: pass 1 "
+          f"{total['pass1_ms']:.4f} ms, pass 2 {total['pass2_ms']:.4f} ms), bound {bound_ms:.6f} ms", flush=True)
     return dict(name="nms_keep", route="cuda", source="openset_rcnn_tpu_torch/csrc/nms_keep.cu",
                 replaces="openset_rcnn_tpu/ops/pallas/nms_kernel.py:61", max_abs_err=0.0,
                 ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None, pass1_ms=total["pass1_ms"], pass2_ms=total["pass2_ms"], **cases)
 
 
 def load_cfg(path=CONFIG, **tpu):
@@ -471,34 +522,46 @@ def phase_iou_match(torch, dev):
 
 
 def phase_roi_align_bwd(torch, dev):
+    """K2 f32 at the f32 train shapes (B=4), at the train_bf16 batch (B=16),
+    and on RoIs clustered around the GT (many RoIs adding into one cell)."""
     from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align_bwd, roi_align_bwd_plain
 
     g = torch.Generator(device=dev).manual_seed(5)
-    B, R, C, P, S = TRAIN_BATCH, TRAIN_ROIS, 256, 7, 2
+    R, C, P, S = TRAIN_ROIS, 256, 7, 2
     H, W = BUCKET
     level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
-    boxes = roi_boxes(torch, g, B, R, dev)
-    levels = assign_levels(boxes)
-    cot = torch.randn(B, R, P, P, C, generator=g, device=dev)
-    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
-    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S)
-    torch.cuda.synchronize()
-    scale = max(1.0, max(float(w.abs().max()) for w in want))
-    max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
-    check(max_abs <= BWD_TOL * scale, f"roi_align_bwd kernel vs plain: max abs {max_abs} > {BWD_TOL} * {scale}")
-    per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
-    ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
-    plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S), 2)
-    # the cotangent, boxes and levels read once; the f32 accumulators written once
-    acc_bytes = sum(w.numel() * 4 for w in want)
-    n_bytes = cot.numel() * 4 + boxes.numel() * 4 + levels.numel() * 4 + acc_bytes
-    bound_ms, bound_by = bound(n_bytes, cot.numel() * (S * S * ROI_BWD_FLOPS_PER_SAMPLE + 1))
-    print(f"roi_align_bwd: B={B} R={R} C={C} RoIs per level {per_level}; max abs err {max_abs:.3e} "
-          f"(limit {BWD_TOL * scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}, {n_bytes / 1e9:.3f} GB of which {acc_bytes / 1e9:.3f} GB accumulators)", flush=True)
+    figures = {}
+    for label, B, make_boxes in (("uniform", TRAIN_BATCH, roi_boxes), ("uniform", TRAIN_BATCH_BF16, roi_boxes),
+                                 ("clustered", TRAIN_BATCH, clustered_boxes),
+                                 ("clustered", TRAIN_BATCH_BF16, clustered_boxes)):
+        boxes = make_boxes(torch, g, B, R, dev)
+        levels = assign_levels(boxes)
+        cot = torch.randn(B, R, P, P, C, generator=g, device=dev)
+        got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
+        want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S)
+        torch.cuda.synchronize()
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        check(max_abs <= BWD_TOL * scale,
+              f"roi_align_bwd kernel vs plain ({label}, B={B}): max abs {max_abs} > {BWD_TOL} * {scale}")
+        del got
+        ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
+        plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S), 2)
+        # the cotangent, boxes and levels read once; the f32 accumulators written once
+        acc_bytes = sum(w.numel() * 4 for w in want)
+        n_bytes = cot.numel() * 4 + boxes.numel() * 4 + levels.numel() * 4 + acc_bytes
+        bound_ms, bound_by = bound(n_bytes, cot.numel() * (S * S * ROI_BWD_FLOPS_PER_SAMPLE + 1))
+        per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+        print(f"roi_align_bwd ({label}): B={B} R={R} C={C} RoIs per level {per_level}; max abs err {max_abs:.3e} "
+              f"(limit {BWD_TOL * scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {n_bytes / 1e9:.3f} GB of which {acc_bytes / 1e9:.3f} GB accumulators)", flush=True)
+        figures[f"{label}_b{B}"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        del want, cot
+    main = figures[f"uniform_b{TRAIN_BATCH}"]
     return dict(name="roi_align_bwd", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
-                replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", max_abs_err=max_abs,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", library_ms=None, **main,
+                **{k: v for k, v in figures.items() if k != f"uniform_b{TRAIN_BATCH}"})
 
 
 def group_grad_norms(model):
@@ -816,7 +879,7 @@ def profile_step(torch, step):
                       if e.device_type == DeviceType.CUDA), key=lambda kv: -kv[1])
     own = {name: sum(ms for key, ms in kernels if name in key)
            for name in ("roi_align_fwd_kernel", "roi_align_bwd_kernel", "roi_align_bwd_bf16_kernel", "iou_match_pass",
-                        "nms_keep")}
+                        "nms_iou_mask_kernel", "nms_walk_kernel")}
     return dict(step_ms=step_ms, device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / step_ms),
                 kernel_ms_total=sum(ms for _, ms in kernels), own_kernels_ms=own,
                 top_kernels_ms=[[key[:60], round(ms, 3)] for key, ms in kernels[:8]])

@@ -14,18 +14,37 @@
 // kernel adds into accumulators the caller zeroed; the bf16 kernel writes
 // every cell itself.
 //
-// roi_align_bwd, f32 accumulators (TPU.ROI_ALIGN_BWD pallas): one block per
-// RoI, threads along C, the sample geometry of the RoI's y and x axes in
-// shared memory exactly as the forward kernel computes it. For each bin and
-// sample, each of the 4 bilinear neighbours gets (cotangent / count) *
-// in_range * weight through an f32 atomicAdd; a warp adds to 32 neighbouring
-// channels of one cell, one coalesced 128-byte atomic per warp. The TPU
-// kernel is race-free only because its grid runs in order; here RoIs of one
-// image overlap and run in parallel, so the adds are atomic and their order,
-// and so the f32 rounding of each cell's sum, changes from run to run (a
-// tolerance, not bitwise equality, against the plain version). Samples
-// outside the map (in_range 0) add nothing and are skipped. Bound: bytes,
-// the cotangent read and the f32 accumulators written.
+// roi_align_bwd, f32 accumulators (TPU.ROI_ALIGN_BWD pallas). The TPU
+// kernel sums each RoI's window gradient once in f32 and adds it to the
+// accumulator window in one read-add-write (roi_align_v2.py:404-451); it is
+// race-free only because its grid runs in order. Here the RoIs of one image
+// overlap and run in parallel, so the adds into the accumulators are atomic.
+// Bound on the H100: bytes, the cotangent read and the f32 accumulators
+// written (0.144 ms at B=4, R=512, C=256 on the 832x1344 pyramid); what
+// limits a scatter is the number of atomic operations: one per (sample,
+// neighbour, channel) is 784 per RoI and channel at (7, 2), most of them
+// into a cell the same RoI has just added to.
+//
+// Design: the TPU kernel's form, with one atomic per touched cell. One
+// 256-thread block per RoI.
+//   * The sample geometry of the RoI's y and x axes (the forward's
+//     operations, sample_at), then per axis the distinct rows (columns) that
+//     its 2 * P * S neighbour entries reach, ascending, and for each the list
+//     of (bin, weight * in_range) entries in the TPU kernel's sample order
+//     (collect_entries, which the bf16 kernel calls too), stored CSR-style:
+//     each axis has exactly 2 * P * S entries, so P * S <= 32 fits.
+//   * The warps take the touched cells (rows x columns) in turn; a lane holds
+//     8 channels as two float4 groups. For each cell it sums the f32 window
+//     gradient as the TPU kernel does: d(x-interp) over the column's entries,
+//     then d(y-interp) over the row's entries, the cotangent scaled by
+//     1/count and read through L1. Then one 16-byte vector atomicAdd (sm_90)
+//     adds it to the accumulator; scalar atomics where C % 4 != 0 or a
+//     pointer is not 16-byte aligned. Cells whose entries all have weight 0
+//     (samples outside the map) are skipped.
+// Each RoI's contribution is thus its f32 window sum, rounded as JAX rounds
+// it; only the order of the RoIs within a cell changes from run to run, so
+// the card holds the kernel to its plain version within a tolerance. Times
+// of this design and of the one it replaced: PERF.md.
 //
 // roi_align_bwd_bf16, bf16 accumulators (TPU.ROI_ALIGN_BWD pallas_bf16): the
 // TPU kernel sums each RoI's window gradient in f32 and adds it to the bf16
@@ -84,7 +103,8 @@
 namespace {
 
 constexpr int kLevels = 4;
-constexpr int kMaxSamples = 32;  // out_size * sampling_ratio per axis
+constexpr int kMaxSamples = 32;                   // out_size * sampling_ratio per axis
+constexpr int kMaxAxisEntries = 2 * kMaxSamples;  // (bin, weight) entries of one axis of one RoI
 
 struct Levels {
   float* grad[kLevels];
@@ -93,71 +113,204 @@ struct Levels {
   float inv_stride[kLevels];
 };
 
-__global__ void roi_align_bwd_kernel(Levels lv, const float* __restrict__ boxes,
-                                     const int* __restrict__ levels,
-                                     const float* __restrict__ cot, int R, int C, int P, int S) {
-  __shared__ int s_lo[2][kMaxSamples];  // [axis][sample]: floor neighbour
-  __shared__ int s_hi[2][kMaxSamples];  // min(floor + 1, extent - 1)
+struct Sample {
+  int lo, hi;  // floor neighbour, min(floor + 1, extent - 1)
+  float frac, ok;
+};
+
+// sample idx of the axis [lo, hi]: the forward kernel's geometry, operation
+// for operation
+__device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, int idx, int extent) {
+  const float bin = (hi - lo) / (float)P;
+  const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
+  float v = lo + in_bins * bin;
+  const float ext = (float)extent;
+  Sample s;
+  s.ok = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
+  v = fminf(fmaxf(v, 0.0f), ext - 1.0f);
+  const float v0 = floorf(v);
+  const float v1 = fminf(v0 + 1.0f, ext - 1.0f);
+  s.lo = (int)v0;
+  s.hi = (int)v1;
+  s.frac = v - v0;
+  return s;
+}
+
+// The (bin, weight * in_range) entries through which one axis's samples
+// (lo, hi, frac, ok indexed by sample, bin-major) reach row or column
+// `cell`, in the TPU kernel's sample order: sub-sample-major, the lower
+// neighbour's entry before the upper one's, so an edge-clamped neighbour
+// takes two separate adds (roi_align_v2.py:414-442). Returns their number.
+__device__ __forceinline__ int collect_entries(const int* lo, const int* hi, const float* frac, const float* ok,
+                                               int P, int S, int cell, unsigned char* bin, float* wt) {
+  int m = 0;
+  for (int a = 0; a < S; ++a) {
+    for (int pb = 0; pb < P; ++pb) {
+      const int p = pb * S + a;
+      const float fr = frac[p], o = ok[p];
+      if (lo[p] == cell) {
+        bin[m] = (unsigned char)pb;
+        wt[m] = (1.0f - fr) * o;
+        ++m;
+      }
+      if (hi[p] == cell) {
+        bin[m] = (unsigned char)pb;
+        wt[m] = fr * o;
+        ++m;
+      }
+    }
+  }
+  return m;
+}
+
+// ------------------------------------------------------------- f32 accumulators
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Vec = 8;  // channels per lane and pass: two float4 groups, 128 channels apart
+
+// n (<= 4) cotangent values / count from p: a 16-byte load when vec, else
+// masked scalar loads, zero beyond n
+__device__ __forceinline__ void load4(const float* p, int n, bool vec, float inv_count, float* out) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) out[v] = v < n ? __ldg(p + v) : 0.0f;
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
+}
+
+// acc[0..n) += win[0..n): one 16-byte vector reduction when vec, else scalar
+__device__ __forceinline__ void add4(float* acc, int n, bool vec, const float* win) {
+  if (vec) {
+    atomicAdd(reinterpret_cast<float4*>(acc), make_float4(win[0], win[1], win[2], win[3]));
+  } else {
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (v < n) atomicAdd(acc + v, win[v]);
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads) roi_align_bwd_kernel(
+    Levels lv, const float* __restrict__ boxes, const int* __restrict__ levels, const float* __restrict__ cot,
+    int R, int C, int P, int S, bool vec) {
+  __shared__ int s_lo[2][kMaxSamples];  // [axis][sample], samples bin-major as the forward's
+  __shared__ int s_hi[2][kMaxSamples];
   __shared__ float s_frac[2][kMaxSamples];
-  __shared__ float s_ok[2][kMaxSamples];  // 1 inside (-1, extent), else 0
+  __shared__ float s_ok[2][kMaxSamples];
+  __shared__ int s_cand[2][kMaxAxisEntries];  // [axis][2 * sample + upper]: the cell it reaches
+  __shared__ unsigned char s_first[2][kMaxAxisEntries];
+  // [axis][k]: the k-th touched row or column, ascending; its entries are
+  // s_bin/s_wt[axis][s_off[k] .. s_off[k + 1])
+  __shared__ int s_cell[2][kMaxAxisEntries];
+  __shared__ int s_off[2][kMaxAxisEntries + 1];
+  __shared__ unsigned char s_live[2][kMaxAxisEntries];  // some entry has a nonzero weight
+  __shared__ int s_ncell[2];
+  __shared__ unsigned char s_bin[2][kMaxAxisEntries];
+  __shared__ float s_wt[2][kMaxAxisEntries];
 
   const int roi = blockIdx.x;
   const int b = roi / R;
   const int l = levels[roi];
   const int H = lv.h[l];
   const int W = lv.w[l];
-  const int PS = P * S;
+  const int PS = P * S, NE = 2 * PS;
   const int t = threadIdx.x;
 
-  if (t < 2 * PS) {  // the forward kernel's geometry, operation for operation
+  if (t < 2 * PS) {
     const int axis = t < PS ? 0 : 1;  // 0: y, 1: x
     const int idx = t - axis * PS;
     const float scale = lv.inv_stride[l];
     const float* bx = boxes + 4 * (size_t)roi;
     const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
     const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
-    const float bin = (hi - lo) / (float)P;
-    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
-    float v = lo + in_bins * bin;
-    const float ext = (float)(axis == 0 ? H : W);
-    s_ok[axis][idx] = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
-    v = fminf(fmaxf(v, 0.0f), ext - 1.0f);
-    const float v0 = floorf(v);
-    const float v1 = fminf(v0 + 1.0f, ext - 1.0f);
-    s_lo[axis][idx] = (int)v0;
-    s_hi[axis][idx] = (int)v1;
-    s_frac[axis][idx] = v - v0;
+    const Sample s = sample_at(lo, hi, P, S, idx, axis == 0 ? H : W);
+    s_lo[axis][idx] = s.lo;
+    s_hi[axis][idx] = s.hi;
+    s_frac[axis][idx] = s.frac;
+    s_ok[axis][idx] = s.ok;
+  }
+  __syncthreads();
+  // each axis's 2 * P * S neighbour entries: which is the first to reach its cell
+  const int axis = t / NE, e = t % NE;
+  int v = 0;
+  if (t < 2 * NE) {
+    v = (e & 1) ? s_hi[axis][e >> 1] : s_lo[axis][e >> 1];
+    bool first = true;
+    for (int f = 0; f < e; ++f) first = first && ((f & 1) ? s_hi[axis][f >> 1] : s_lo[axis][f >> 1]) != v;
+    s_cand[axis][e] = v;
+    s_first[axis][e] = first;
+  }
+  __syncthreads();
+  // the first entry of each touched cell files the cell and its entry list
+  if (t < 2 * NE && s_first[axis][e]) {
+    int rank = 0, off = 0;
+    for (int f = 0; f < NE; ++f) {
+      if (s_cand[axis][f] < v) {
+        ++off;
+        rank += s_first[axis][f];
+      }
+    }
+    const int m = collect_entries(s_lo[axis], s_hi[axis], s_frac[axis], s_ok[axis], P, S, v, s_bin[axis] + off,
+                                  s_wt[axis] + off);
+    bool live = false;
+    for (int f = 0; f < m; ++f) live = live || s_wt[axis][off + f] != 0.0f;
+    s_cell[axis][rank] = v;
+    s_off[axis][rank] = off;
+    s_live[axis][rank] = live;
+    if (off + m == NE) {  // the last touched cell
+      s_ncell[axis] = rank + 1;
+      s_off[axis][rank + 1] = NE;
+    }
   }
   __syncthreads();
 
+  // each touched cell's window gradient, summed once, added once
+  const int ny = s_ncell[0], nx = s_ncell[1];
+  const int lane = t & 31, warp = t >> 5;
   float* acc = lv.grad[l] + (size_t)b * H * W * C;
   const float* g = cot + (size_t)roi * P * P * C;
-  const float count = (float)(S * S);
-  for (int c = t; c < C; c += blockDim.x) {
-    for (int py = 0; py < P; ++py) {
-      for (int px = 0; px < P; ++px) {
-        const float gv = g[((size_t)py * P + px) * C + c] / count;  // d(mean)
-        for (int sy = 0; sy < S; ++sy) {
-          const int iy = py * S + sy;
-          const int y0 = s_lo[0][iy], y1 = s_hi[0][iy];
-          const float ly = s_frac[0][iy];
-          for (int sx = 0; sx < S; ++sx) {
-            const int ix = px * S + sx;
-            const float d = gv * (s_ok[0][iy] * s_ok[1][ix]);  // d(val * ok)
-            if (d == 0.0f) continue;
-            const int x0 = s_lo[1][ix], x1 = s_hi[1][ix];
-            const float lx = s_frac[1][ix];
-            const float w00 = (1.0f - ly) * (1.0f - lx);
-            const float w01 = (1.0f - ly) * lx;
-            const float w10 = ly * (1.0f - lx);
-            const float w11 = ly * lx;
-            atomicAdd(acc + ((size_t)y0 * W + x0) * C + c, d * w00);
-            atomicAdd(acc + ((size_t)y0 * W + x1) * C + c, d * w01);
-            atomicAdd(acc + ((size_t)y1 * W + x0) * C + c, d * w10);
-            atomicAdd(acc + ((size_t)y1 * W + x1) * C + c, d * w11);
+  const float inv_count = 1.0f / (float)(S * S);
+  for (int cell = warp; cell < ny * nx; cell += kF32Threads / 32) {
+    const int ry = cell / nx, rx = cell % nx;
+    if (!s_live[0][ry] || !s_live[1][rx]) continue;
+    const int e0 = s_off[0][ry], e1 = s_off[0][ry + 1];
+    const int f0 = s_off[1][rx], f1 = s_off[1][rx + 1];
+    float* dst = acc + ((size_t)s_cell[0][ry] * W + s_cell[1][rx]) * C;
+    for (int c0 = 4 * lane; c0 < C; c0 += 32 * kF32Vec) {
+      const int c1 = c0 + 128;  // the lane's second group
+      const int n0 = min(4, C - c0), n1 = min(4, C - c1);
+      float win[kF32Vec];
+#pragma unroll
+      for (int k = 0; k < kF32Vec; ++k) win[k] = 0.0f;
+      for (int ei = e0; ei < e1; ++ei) {
+        // d(x-interp) of y-bin s_bin[0][ei] at this column, then its d(y-interp)
+        const float* row = g + (size_t)s_bin[0][ei] * P * C;
+        float dt1[kF32Vec];
+#pragma unroll
+        for (int k = 0; k < kF32Vec; ++k) dt1[k] = 0.0f;
+        for (int fi = f0; fi < f1; ++fi) {
+          const float* p = row + (size_t)s_bin[1][fi] * C;
+          const float wx = s_wt[1][fi];
+          float cv[kF32Vec];
+          load4(p + c0, n0, vec, inv_count, cv);
+          if (n1 > 0) {
+            load4(p + c1, n1, vec, inv_count, cv + 4);
+          } else {
+#pragma unroll
+            for (int k = 4; k < kF32Vec; ++k) cv[k] = 0.0f;
           }
+#pragma unroll
+          for (int k = 0; k < kF32Vec; ++k) dt1[k] = dt1[k] + cv[k] * wx;
         }
+        const float wy = s_wt[0][ei];
+#pragma unroll
+        for (int k = 0; k < kF32Vec; ++k) win[k] = win[k] + dt1[k] * wy;
       }
+      add4(dst + c0, n0, vec, win);
+      if (n1 > 0) add4(dst + c1, n1, vec, win + 4);
     }
   }
 }
@@ -185,29 +338,6 @@ struct LevelsBf16 {
   int tiles_x[kLevels];
   int tile_start[kLevels + 1];  // each level's first tile within an image; [kLevels]: tiles per image
 };
-
-struct Sample {
-  int lo, hi;  // floor neighbour, min(floor + 1, extent - 1)
-  float frac, ok;
-};
-
-// sample idx of the axis [lo, hi]: the forward kernel's geometry, operation
-// for operation
-__device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, int idx, int extent) {
-  const float bin = (hi - lo) / (float)P;
-  const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
-  float v = lo + in_bins * bin;
-  const float ext = (float)extent;
-  Sample s;
-  s.ok = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
-  v = fminf(fmaxf(v, 0.0f), ext - 1.0f);
-  const float v0 = floorf(v);
-  const float v1 = fminf(v0 + 1.0f, ext - 1.0f);
-  s.lo = (int)v0;
-  s.hi = (int)v1;
-  s.frac = v - v0;
-  return s;
-}
 
 // kVec cotangent values / count from p: two 16-byte loads when vec, else
 // masked scalar loads, zero beyond n
@@ -326,24 +456,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
         const int k = t / kLists, j = t % kLists;
         const int axis = j < kTileH ? 0 : 1;
         const int cell = axis == 0 ? ty0 + j : tx0 + j - kTileH;
-        int m = 0;
-        for (int a = 0; a < S; ++a) {
-          for (int pb = 0; pb < P; ++pb) {
-            const int p = pb * S + a;
-            const float fr = s_frac[k][axis][p], ok = s_ok[k][axis][p];
-            if (s_lo[k][axis][p] == cell) {
-              s_bin[k][j][m] = (unsigned char)pb;
-              s_wt[k][j][m] = (1.0f - fr) * ok;
-              ++m;
-            }
-            if (s_hi[k][axis][p] == cell) {
-              s_bin[k][j][m] = (unsigned char)pb;
-              s_wt[k][j][m] = fr * ok;
-              ++m;
-            }
-          }
-        }
-        s_n[k][j] = m;
+        s_n[k][j] = collect_entries(s_lo[k][axis], s_hi[k][axis], s_frac[k][axis], s_ok[k][axis], P, S, cell,
+                                    s_bin[k][j], s_wt[k][j]);
       }
       __syncthreads();
       if (n > 0) {
@@ -410,13 +524,15 @@ extern "C" {
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// grads: 4 NHWC f32 level accumulators with their (h, w) and 1/stride.
-// Returns cudaGetLastError() after the launch (0 on success).
+// grads: 4 NHWC f32 level accumulators with their (h, w) and 1/stride,
+// zeroed by the caller. Returns cudaGetLastError() after the launch (0 on
+// success).
 int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1, int h2,
                   int w2, int h3, int w3, float s0, float s1, float s2, float s3,
                   const float* boxes, const int* levels, const float* cot, int n_rois,
                   int rois_per_image, int C, int P, int S, void* stream) {
-  if (P * S > kMaxSamples || n_rois <= 0) return (int)cudaErrorInvalidValue;
+  if (P < 1 || S < 1 || P * S > kMaxSamples || C < 1 || n_rois <= 0 || rois_per_image <= 0)
+    return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.grad[0] = (float*)g0;
   lv.grad[1] = (float*)g1;
@@ -425,11 +541,10 @@ int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1
   lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
   lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
   lv.inv_stride[0] = s0; lv.inv_stride[1] = s1; lv.inv_stride[2] = s2; lv.inv_stride[3] = s3;
-  int threads = ((C + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  if (threads < 2 * P * S) threads = ((2 * P * S + 31) / 32) * 32;
-  roi_align_bwd_kernel<<<n_rois, threads, 0, (cudaStream_t)stream>>>(
-      lv, boxes, levels, cot, rois_per_image, C, P, S);
+  bool vec = C % 4 == 0 && ((uintptr_t)cot % 16) == 0;
+  for (int i = 0; i < kLevels; ++i) vec = vec && ((uintptr_t)lv.grad[i] % 16) == 0;
+  roi_align_bwd_kernel<<<n_rois, kF32Threads, 0, (cudaStream_t)stream>>>(
+      lv, boxes, levels, cot, rois_per_image, C, P, S, vec);
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,8 @@ keep mask in sorted order; nothing is filtered dynamically.
   (``openset_rcnn_tpu/ops/pallas/nms_kernel.py:45-51``). The CPU path and the
   kernel's oracle.
 * ``nms_keep`` is the wrapper: plain version for CPU tensors, the CUDA kernel
-  (``csrc/nms_keep.cu``, one launch for all images) for CUDA tensors. There
-  is no fallback.
+  (``csrc/nms_keep.cu``: an IoU bitmask pass, then the greedy walk, both for
+  all images) for CUDA tensors. There is no fallback.
 """
 from __future__ import annotations
 
@@ -58,15 +58,18 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> t
 
 
 _SIGNATURE = {
-    "nms_keep": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+    "nms_keep": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    "nms_max_boxes": [],
 }
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """Greedy keep mask (B, N) bool over score-sorted boxes (B, N, 4) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel's two
+    passes (the IoU bitmask, then the walk). ``nms_keep.launches`` counts
+    calls: one per call, both passes together.
     """
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, valid, thresh)
@@ -83,9 +86,13 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.T
     if B * N == 0:
         return keep
     lib = _build.load("nms_keep", _SIGNATURE)
+    if N > lib.nms_max_boxes():
+        raise ValueError(f"the kernel takes at most {lib.nms_max_boxes()} boxes per image, got {N}")
+    nw = -(-N // 64)  # the suppression mask's 64-bit words per row; the kernel writes what it reads
+    mask = torch.empty((B, nw, 64 * nw), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
         code = lib.nms_keep(
-            boxes.data_ptr(), valid.data_ptr(), B, N, float(thresh), keep.data_ptr(),
+            boxes.data_ptr(), valid.data_ptr(), B, N, float(thresh), mask.data_ptr(), keep.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, "nms_keep", code)
@@ -93,7 +100,7 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.T
     return keep
 
 
-nms_keep.launches = 0  # kernel launches since the last reset
+nms_keep.launches = 0  # calls that launched the kernel since the last reset
 
 
 def nms_mask(

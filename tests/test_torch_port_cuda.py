@@ -122,7 +122,7 @@ def nms_inputs(dev, B, N, seed=0):
     return boxes.contiguous(), u(B, N) > 0.2
 
 
-@pytest.mark.parametrize("N", [1, 33, 1000, 2000, 3000])  # 3000: above 48 KB of shared memory
+@pytest.mark.parametrize("N", [1, 33, 1000, 2000, 3000])
 @pytest.mark.parametrize("thresh", [0.5, 0.7])
 def test_nms_kernel_matches_plain(dev, N, thresh):
     boxes, valid = nms_inputs(dev, 4, N, seed=N)
@@ -132,6 +132,52 @@ def test_nms_kernel_matches_plain(dev, N, thresh):
     assert nms_keep.launches == before + 1
     assert torch.equal(got, nms_keep_plain(boxes, valid, thresh))
     assert not got[~valid].any()
+
+
+# 64 rows per mask word, 32 words per lane of the walking warp: 2048 rows
+# fill one word per lane, 4100 needs three (more words than lanes), and the
+# walk's shared memory then exceeds 48 KB
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 2047, 2048, 2049, 4100])
+def test_nms_kernel_word_and_lane_boundaries(dev, N):
+    boxes, valid = nms_inputs(dev, 3, N, seed=N + 1)
+    before = nms_keep.launches
+    got = nms_keep(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    assert torch.equal(got, nms_keep_plain(boxes, valid, 0.5))
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "all_identical", "thresh_0", "thresh_1", "class_offset"])
+def test_nms_kernel_edge_cases(dev, case):
+    """Exactly the plain version: nothing valid; every box the same (only
+    the first survives); threshold 0 (any overlap suppresses) and 1 (strict
+    '>': nothing suppresses); the known branch's class-offset input (20
+    classes shifted apart, most rows kept)."""
+    boxes, valid = nms_inputs(dev, 2, 700, seed=17)
+    thresh = {"thresh_0": 0.0, "thresh_1": 1.0}.get(case, 0.5)
+    if case == "all_invalid":
+        valid = torch.zeros_like(valid)
+    elif case == "all_identical":
+        boxes = boxes[:, :1].expand_as(boxes).contiguous()
+        valid = torch.ones_like(valid)
+    elif case == "class_offset":
+        g = torch.Generator(device=dev).manual_seed(18)
+        cls = (torch.rand(valid.shape, generator=g, device=dev) * 20).floor()
+        boxes = (boxes + (cls * (boxes.amax(dim=(1, 2)) + 1.0)[:, None])[..., None]).contiguous()
+    before = nms_keep.launches
+    got = nms_keep(boxes, valid, thresh)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    want = nms_keep_plain(boxes, valid, thresh)
+    assert torch.equal(got, want)
+    if case == "all_invalid":
+        assert not got.any()
+    elif case == "all_identical":
+        assert got[:, 0].all() and not got[:, 1:].any()
+    elif case == "thresh_1":
+        assert torch.equal(got, valid)
+    elif case == "class_offset":
+        assert int(got.sum()) > int(nms_keep_plain(*nms_inputs(dev, 2, 700, seed=17), 0.5).sum())
 
 
 def test_nms_kernel_rejects_what_it_does_not_take(dev):
@@ -210,7 +256,8 @@ def assert_bwd_close(got, want, rtol=0.0):
         torch.testing.assert_close(a.float(), w, atol=BWD_TOL * scale, rtol=rtol)
 
 
-@pytest.mark.parametrize("C", [256, 200, 32])
+# 200, 100: some lanes hold one float4 group or none; 98: C % 4 != 0, scalar loads and atomics
+@pytest.mark.parametrize("C", [256, 200, 32, 100, 98])
 def test_roi_align_bwd_kernel_matches_plain(dev, C):
     feats, boxes, levels, cot = bwd_inputs(dev, 3, 301, C, seed=C)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
@@ -389,13 +436,10 @@ def test_roi_align_bwd_bf16_kernel_hot_tile(dev):
     assert not got[0][1].any() and not got[3][0].any()
 
 
-def test_roi_align_bwd_bf16_kernel_edges_tiles_and_levels(dev):
+def edge_boxes(dev, B, R, H, W, seed):
     """RoIs clamped at every map edge (partly or wholly outside the image),
-    RoIs spanning many tiles, on every level, on maps whose sides are not
-    multiples of the tile."""
-    B, R, C = 2, 256, 32
-    H, W = 200, 328  # P2 50 x 82: ragged against 8 x 16 tiles
-    g = torch.Generator(device=dev).manual_seed(14)
+    on random levels, some spanning the whole map."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g, device=dev)
     side = 8.0 + u(B, R) * 300.0
     cx = torch.where(u(B, R) < 0.5, u(B, R) * 30.0 - 15.0, W + u(B, R) * 30.0 - 15.0)
@@ -407,10 +451,68 @@ def test_roi_align_bwd_bf16_kernel_edges_tiles_and_levels(dev):
                                cy[swap] + side[swap] / 2, top[swap] + side[swap] / 2], -1)
     boxes[:, :8] = torch.tensor([-50.0, -50.0, W + 50.0, H + 50.0], device=dev)  # the whole map and beyond
     boxes[:, 8:16] = torch.tensor([W + 10.0, H + 10.0, W + 60.0, H + 60.0], device=dev)  # wholly outside
-    boxes = boxes.contiguous()
     levels = torch.randint(0, 4, (B, R), generator=g, device=dev, dtype=torch.int32)  # every level
+    return boxes.contiguous(), levels, g
+
+
+def test_roi_align_bwd_bf16_kernel_edges_tiles_and_levels(dev):
+    """RoIs clamped at every map edge (partly or wholly outside the image),
+    RoIs spanning many tiles, on every level, on maps whose sides are not
+    multiples of the tile."""
+    B, R, C = 2, 256, 32
+    H, W = 200, 328  # P2 50 x 82: ragged against 8 x 16 tiles
+    boxes, levels, g = edge_boxes(dev, B, R, H, W, seed=14)
     cot = torch.randn(B, R, 7, 7, C, generator=g, device=dev)
     level_hw = [(-(-H // s), -(-W // s)) for s in STRIDES]
     got = roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES)
     torch.cuda.synchronize()
     assert_bf16_acc_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.bfloat16))
+
+
+def test_roi_align_bwd_kernel_edges_and_outside(dev):
+    """K2 f32: RoIs clamped at every map edge, wholly outside the map (every
+    sample out of range: nothing to add) and over the whole map, on every
+    level."""
+    B, R, C = 2, 256, 64
+    H, W = 200, 328
+    boxes, levels, g = edge_boxes(dev, B, R, H, W, seed=15)
+    levels[:, 8:16] = 0  # past the P2 map's last row and column (coarser maps round up and reach them)
+    cot = torch.randn(B, R, 7, 7, C, generator=g, device=dev)
+    level_hw = [(-(-H // s), -(-W // s)) for s in STRIDES]
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+    torch.cuda.synchronize()
+    assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES))
+    outside = torch.zeros_like(cot)
+    outside[:, 8:16] = cot[:, 8:16]  # only the RoIs wholly outside the map
+    assert not any(a.any() for a in roi_align_bwd(outside, boxes, levels, level_hw, STRIDES))
+
+
+def test_roi_align_bwd_kernel_hot_cell(dev):
+    """K2 f32: 600 RoIs of one image over one spot, so every RoI's atomics
+    land on the same few cells."""
+    B, R, C = 2, 600, 256
+    g = torch.Generator(device=dev).manual_seed(16)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)
+    xy = 100.0 + u(B, R, 2) * 2.0
+    boxes = torch.cat([xy, xy + 4.0 + u(B, R, 2) * 2.0], -1).contiguous()  # P2, at most four cells a side
+    levels = assign_levels(boxes)
+    assert int((levels == 0).sum()) == B * R
+    cot = torch.randn(B, R, 7, 7, C, generator=g, device=dev)
+    level_hw = [(-(-256 // s), -(-384 // s)) for s in STRIDES]
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+    torch.cuda.synchronize()
+    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES)
+    assert_bwd_close(got, want)
+    assert int((want[0][0].abs().sum(-1) > 0).sum()) <= 16
+
+
+@pytest.mark.parametrize("P,S", [(7, 3), (14, 2)])  # P * S above the bf16 mode's 16
+def test_roi_align_bwd_kernel_generic_grid(dev, P, S):
+    feats, boxes = roi_inputs(dev, 2, 97, 64, seed=P * 10 + S)
+    levels = assign_levels(boxes)
+    g = torch.Generator(device=dev).manual_seed(P + S)
+    cot = torch.randn(2, 97, P, P, 64, generator=g, device=dev)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
+    torch.cuda.synchronize()
+    assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S))

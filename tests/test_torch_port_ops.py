@@ -278,6 +278,28 @@ def test_nms_keep_matches_pallas_kernel(rng):
     assert got.numpy()[sv].any() and not got.numpy()[~sv].any()
 
 
+@pytest.mark.parametrize("N,case", [(1, "random"), (63, "random"), (64, "random"), (65, "random"),
+                                    (130, "random"), (70, "all_invalid"), (70, "all_identical")])
+def test_nms_keep_plain_matches_pallas_kernel_at_word_boundaries(rng, N, case):
+    """The CUDA kernel's oracle against the TPU kernel in interpret mode
+    across the kernel's 64-row mask words, with nothing valid and with every
+    box the same."""
+    boxes = random_boxes(rng, (2, N), hi=120.0, wmin=10.0, wmax=60.0)
+    valid = rng.rand(2, N) > 0.2
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "all_identical":
+        boxes[:] = boxes[:, :1]
+        valid[:] = True
+    got = port_nms.nms_keep_plain(t(boxes), t(valid), 0.5)
+    for b in range(2):
+        want = nms_keep_pallas(jnp.asarray(boxes[b]), jnp.asarray(valid[b]), 0.5, interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+    if case == "all_identical":
+        assert got[:, 0].all() and not got[:, 1:].any()
+    assert not got.numpy()[~valid].any()
+
+
 def test_batched_nms_mask_matches_jax(rng):
     boxes, scores, valid = nms_inputs(rng, 2, 120)
     classes = rng.randint(0, 4, (2, 120)).astype(np.int32)

@@ -321,6 +321,40 @@ def test_roi_align_bwd_plain_matches_pallas_v2_bwd(rng):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
+def clustered_roi_boxes(rng, B, R, n_centres, jitter):
+    """RoIs jittered around a few boxes per image, as the ROI sampler draws
+    them around the GT: many RoIs add into the same cells."""
+    wh = rng.uniform(16.0, 120.0, (B, n_centres, 2))
+    xy = rng.uniform(0.0, 1.0, (B, n_centres, 2)) * (np.asarray([IMG_W, IMG_H]) - wh)
+    centres = np.concatenate([xy, xy + wh], -1)
+    base = np.take_along_axis(centres, rng.randint(0, n_centres, (B, R))[..., None], 1)
+    side = np.concatenate([base[..., 2:] - base[..., :2]] * 2, -1)
+    boxes = base + (rng.uniform(0.0, 1.0, (B, R, 4)) - 0.5) * jitter * side
+    return np.clip(boxes, 0, np.asarray([IMG_W, IMG_H, IMG_W, IMG_H])).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_centres,jitter", [(3, 0.3), (1, 0.05)])  # 1: every RoI over one spot
+def test_roi_align_bwd_plain_matches_pallas_v2_bwd_on_clustered_boxes(rng, n_centres, jitter):
+    """The f32 accumulators against the TPU kernel in interpret mode where
+    many RoIs overlap one cell (the CUDA kernel's atomics contend there),
+    within 1e-5 * max(1, max|want|)."""
+    B, R, C = 2, 24, 32
+    boxes = clustered_roi_boxes(rng, B, R, n_centres, jitter)
+    levels = port_roi.assign_levels(t(boxes))
+    assert torch.equal(levels, port_roi.assign_levels_window_fit(t(boxes), STRIDES))  # the TPU kernel's levels
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    feats = [jnp.zeros((B, h, w, C), jnp.float32) for h, w in LEVEL_HW]
+    want = roi_align_pallas_v2_bwd(feats, jnp.asarray(boxes), jnp.asarray(g), STRIDES, interpret=True)
+    got = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES)
+    for a, b in zip(got, want):
+        assert_close(a, b, 1e-5)
+    # some point of the map lies inside at least a third of one image's RoIs on one level
+    ctr = (boxes[..., :2] + boxes[..., 2:]) / 2
+    inside = ((boxes[:, None, :, :2] <= ctr[:, :, None]) & (ctr[:, :, None] <= boxes[:, None, :, 2:])).all(-1)
+    same_level = levels.numpy()[:, :, None] == levels.numpy()[:, None, :]
+    assert (inside & same_level).sum(-1).max() >= R // 3
+
+
 def test_roi_align_function_gradient_is_the_plain_backward(rng):
     """autograd through RoIAlignFunction: the features' gradient is the plain
     backward rounded to bf16; the boxes get none."""
