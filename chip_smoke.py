@@ -17,13 +17,19 @@ In order it
      exactly; times each (CUDA events) and each of its two passes (device
      time under torch.profiler);
   5. iou_match (K3): the fused IoU+matcher kernel against its plain version
-     at the training shapes (B=4, G=100 padded GT, R=93,093 anchors of the
-     832x1344 bucket), with an image without valid GT, a zero-area GT and
-     integer coordinates that make IoUs tie: all four outputs exactly equal;
+     at the training shapes (B=4 and B=16, G=100 padded GT, R=93,093
+     anchors of the 832x1344 bucket), with an image without valid GT, a
+     zero-area GT, a duplicate GT row and integer coordinates that make IoUs
+     tie: all four outputs exactly equal; at most two device operations per
+     call; the wrapper's time (CUDA events) beside the device time per call
+     (torch.profiler); then the launch floor: an empty kernel, back to back
+     and under the profiler;
   6. roi_align_bwd (K2, f32 accumulators): against its plain version at
      B=4 and B=16 x 512 RoIs, C=256 on the 832x1344 pyramid, on uniform
      boxes and on boxes clustered around the GT, within
-     1e-5 * max(1, max|want|) (atomics reorder the sums); times each;
+     1e-5 * max(1, max|want|) (the plain version sums in another order),
+     two launches bitwise equal; prints both versions' distance from the
+     same sums in f64; times each;
   7. roi_align_window (K5): window-fit levels at the serving shapes, f32 and
      bf16 features, an eighth of the boxes wide and an eighth tall (aspect
      4.5 to 8.5); f32 within atol 2e-5 + rtol 1e-5, bf16 within one bf16
@@ -46,8 +52,10 @@ In order it
  11. train: Trainer on the f32 config at 832x1344, batch 4, on the synthetic
      batch of bench.py (20 GT boxes per image); timed steps, the stage split,
      launch counts, finite losses, frozen parameters and buffers bitwise
-     unchanged, trainable ones moved, and one step under torch.profiler
-     (device idle share, device time by kernel);
+     unchanged, trainable ones moved, one step under torch.profiler (device
+     idle share, device time by kernel), and whether two steps from one state
+     on one batch give bitwise equal parameters (printed, not a gate: cuDNN's
+     backward algorithms need not repeat);
  12. serve_bf16 and train_bf16: the same on the production bf16 config
      (batch 8 serving; batch 16 training, its own IMS_PER_BATCH), each with
      one profiled batch or step.
@@ -56,9 +64,17 @@ just after. Then it prints one JSON line of kernel figures and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --timings [ROOT]
+
+times only K3 and K2 f32 at the shapes of phases 5 and 6 (event and device
+time, no gates), with the openset_rcnn_tpu_torch package of ROOT (default:
+this checkout), so that two versions of the kernels are timed by one script
+in one call: run it on a checkout of each.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -229,10 +245,10 @@ def class_offset_case(torch, g, N, dev):
     return (boxes + (cls * offset[:, None])[..., None]).contiguous(), valid
 
 
-def device_ms(torch, fn, reps, names):
-    """{name: mean device ms of one launch} of the kernels whose names
-    contain each of ``names``, over reps calls of fn() under torch.profiler
-    (launch gaps excluded; a launch the profiler lost does not count)."""
+def device_events(torch, fn, reps):
+    """[(name, device ms, count)] of the device operations (kernels, memsets,
+    copies) of reps calls of fn() under torch.profiler, after one warm-up
+    call (launch gaps excluded; an operation the profiler lost is missing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,12 +258,19 @@ def device_ms(torch, fn, reps, names):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(torch, fn, reps, names):
+    """{name: mean device ms of one launch} of the kernels whose names
+    contain each of ``names``, over reps calls of fn() (``device_events``)."""
+    events = device_events(torch, fn, reps)
     out = {}
     for n in names:
-        found = [e for e in kernels if n in e.key]
-        launches = sum(e.count for e in found)
-        out[n] = sum(e.self_device_time_total for e in found) / 1e3 / launches if launches else 0.0
+        found = [(ms, count) for key, ms, count in events if n in key]
+        launches = sum(count for _, count in found)
+        out[n] = sum(ms for ms, _ in found) / launches if launches else 0.0
     return out
 
 
@@ -455,9 +478,10 @@ def stage_split(torch, run):
     return {s: marks[i][1].elapsed_time(e) for i, (s, e) in enumerate(marks[1:])}
 
 
-def bench_batch(torch, batch_size, max_gt):
+def bench_batch(torch, batch_size, max_gt, images=True):
     """The synthetic 832x1344 training batch of bench.py:105-128, on the host:
-    20 GT boxes per image, uniform in position and size, true size 800x1333."""
+    20 GT boxes per image, uniform in position and size, true size 800x1333.
+    ``images=False``: the same GT, no pixels."""
     import numpy as np
     from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
 
@@ -472,79 +496,164 @@ def bench_batch(torch, batch_size, max_gt):
         boxes[b, :n] = np.concatenate([xy, xy + wh], 1)
         classes[b, :n] = rng.randint(0, 20, n)
         valid[b, :n] = True
-    images = rng.uniform(0, 255, (batch_size, *BUCKET, 3)).astype(np.float32)
+    shape = (batch_size, *BUCKET, 3) if images else (batch_size, 0, 0, 3)
+    images = rng.uniform(0, 255, shape).astype(np.float32)
     return ImageBatch(torch.from_numpy(images), torch.tensor([[800.0, 1333.0]] * batch_size),
                       GroundTruth(torch.from_numpy(boxes), torch.from_numpy(classes), torch.from_numpy(valid)))
 
 
-def phase_iou_match(torch, dev):
+def iou_case(torch, dev, B):
+    """The anchors of the 832x1344 bucket and bench.py's GT at batch B, made
+    tie-laden: every third anchor and image 1's GT on integer coordinates
+    (exact IoU ties), a duplicate GT row (ties between GT), a zero-area GT,
+    image 3 without valid GT."""
     from openset_rcnn_tpu_torch.models.detector import ModelSpec, compute_anchors
-    from openset_rcnn_tpu_torch.ops.iou_match import iou_match, iou_match_plain
 
     cfg = load_cfg()
     anchors, _ = compute_anchors(ModelSpec.from_cfg(cfg), BUCKET)
-    anchors[::3] = anchors[::3].round()  # integer anchors against integer GT: exact IoU ties
-    anchors = torch.from_numpy(anchors).to(dev)
-    gt = bench_batch(torch, TRAIN_BATCH, cfg.TPU.MAX_GT_PER_IMAGE).gt
+    anchors[::3] = anchors[::3].round()
+    gt = bench_batch(torch, B, cfg.TPU.MAX_GT_PER_IMAGE, images=False).gt
     boxes, valid = gt.boxes.clone(), gt.valid.clone()
-    boxes[1] = boxes[1].round()  # integer GT
-    boxes[1, 5] = boxes[1, 4]    # a duplicate GT row: ties between GT
-    boxes[2, 1] = torch.tensor([100.0, 100.0, 100.0, 160.0])  # zero area
-    valid[3] = False             # an image without valid GT
-    boxes, valid = boxes.to(dev), valid.to(dev)
-    got = iou_match(anchors, boxes, valid)
-    want = iou_match_plain(anchors, boxes, valid)
-    torch.cuda.synchronize()
-    for name in want._fields:
-        a, b = getattr(got, name), getattr(want, name)
-        check(torch.equal(a, b), f"iou_match kernel vs plain: {name} differs in {int((a != b).sum())} places")
-    max_abs = max(float((got.max_iou - want.max_iou).abs().max()),
-                  float((got.matched_boxes - want.matched_boxes).abs().max()))
-    check(bool((want.max_iou[3] == -1).all()) and not bool(want.rescued[3].any()), "iou_match: image without GT")
-    m = want.max_iou[1]
-    n_tied = int((m > 0).sum()) - len(torch.unique(m[m > 0]))
-    check(n_tied > 0 and int(want.rescued.sum()) > 0, "iou_match: the inputs reach no ties or no rescue")
-    ms = time_ms(torch, lambda: iou_match(anchors, boxes, valid), 20)
-    plain_ms = time_ms(torch, lambda: iou_match_plain(anchors, boxes, valid), 3)
-    B, G = boxes.shape[:2]
-    R = anchors.shape[0]
-    # one IoU per anchor and valid GT; anchors and GT read once, four outputs written once
-    n_bytes = anchors.numel() * 4 + boxes.numel() * 4 + valid.numel() + B * R * (4 + 4 + 1 + 16)
-    n_pairs = int(valid.sum()) * R
-    bound_ms, bound_by = bound(n_bytes, n_pairs * IOU_FLOPS)
-    print(f"iou_match: B={B} G={G} R={R}, {int(valid.sum())} valid GT, {n_pairs} anchor-GT pairs; "
-          f"all four outputs exact ({int(want.rescued.sum())} rescued anchors, {n_tied} tied IoUs in the "
-          f"integer image); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by})",
-          flush=True)
+    boxes[1] = boxes[1].round()
+    boxes[1, 5] = boxes[1, 4]
+    boxes[2, 1] = torch.tensor([100.0, 100.0, 100.0, 160.0])
+    valid[3] = False
+    return torch.from_numpy(anchors).to(dev), boxes.to(dev), valid.to(dev)
+
+
+def iou_timings(torch, anchors, boxes, valid):
+    """K3's wrapper time per call (CUDA events around 20 back-to-back calls);
+    under the profiler, its device time per call (the sum over its kernels
+    of each one's mean per launch: a call launches each once, and a launch
+    the profiler lost does not count), its device operations per call, and
+    those that are not its kernels (a fill, a memset)."""
+    from openset_rcnn_tpu_torch.ops.iou_match import iou_match
+
+    run = lambda: iou_match(anchors, boxes, valid)
+    ms = time_ms(torch, run, 20)
+    for _ in range(3):  # the profiler now and then loses a window's launches: profile again
+        events = device_events(torch, run, 20)
+        passes, others = {}, []
+        for key, t, count in events:
+            name = re.search(r"iou_match\w*", key)
+            if name:
+                total, n = passes.get(name.group(0), (0.0, 0))
+                passes[name.group(0)] = (total + t, n + count)
+            else:
+                others.append(key[:48])
+        if len(passes) == 2:
+            break
+    passes = {k: t / n for k, (t, n) in passes.items()}
+    return dict(ms=ms, device_ms=sum(passes.values()), passes_ms=passes,
+                ops_per_call=sum(count for _, _, count in events) / 20, other_ops=others)
+
+
+def phase_iou_match(torch, dev):
+    """K3 at the f32 (B=4) and the bf16 (B=16) train steps' batches."""
+    from openset_rcnn_tpu_torch.ops.iou_match import iou_match, iou_match_plain
+
+    figures = {}
+    for B in (TRAIN_BATCH, TRAIN_BATCH_BF16):
+        anchors, boxes, valid = iou_case(torch, dev, B)
+        got = iou_match(anchors, boxes, valid)
+        want = iou_match_plain(anchors, boxes, valid)
+        torch.cuda.synchronize()
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            check(torch.equal(a, b), f"iou_match kernel vs plain (B={B}): {name} differs in {int((a != b).sum())} places")
+        max_abs = max(float((got.max_iou - want.max_iou).abs().max()),
+                      float((got.matched_boxes - want.matched_boxes).abs().max()))
+        check(bool((want.max_iou[3] == -1).all()) and not bool(want.rescued[3].any()), "iou_match: image without GT")
+        m = want.max_iou[1]
+        n_tied = int((m > 0).sum()) - len(torch.unique(m[m > 0]))
+        check(n_tied > 0 and int(want.rescued.sum()) > 0, "iou_match: the inputs reach no ties or no rescue")
+        t = iou_timings(torch, anchors, boxes, valid)
+        check(len(t["passes_ms"]) == 2 and not t["other_ops"] and t["ops_per_call"] <= 2,
+              f"iou_match (B={B}): {t['ops_per_call']} device operations per call, kernels {list(t['passes_ms'])}, "
+              f"others {t['other_ops']}: its two kernels and nothing else expected")
+        plain_ms = time_ms(torch, lambda: iou_match_plain(anchors, boxes, valid), 3)
+        G, R = boxes.shape[1], anchors.shape[0]
+        # one IoU per anchor and valid GT; anchors and GT read once, four outputs written once
+        n_bytes = anchors.numel() * 4 + boxes.numel() * 4 + valid.numel() + B * R * (4 + 4 + 1 + 16)
+        n_pairs = int(valid.sum()) * R
+        bound_ms, bound_by = bound(n_bytes, n_pairs * IOU_FLOPS)
+        print(f"iou_match: B={B} G={G} R={R}, {int(valid.sum())} valid GT, {n_pairs} anchor-GT pairs; "
+              f"all four outputs exact ({int(want.rescued.sum())} rescued anchors, {n_tied} tied IoUs in the "
+              f"integer image); {t['ops_per_call']:g} device operations per call; wrapper {t['ms']:.4f} ms "
+              f"(CUDA events), device {t['device_ms']:.4f} ms per call "
+              + json.dumps({k: round(v, 5) for k, v in t["passes_ms"].items()})
+              + f"; plain {plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+        figures[B] = dict(max_abs_err=max_abs, ms=t["ms"], device_ms=t["device_ms"], passes_ms=t["passes_ms"],
+                          ops_per_call=t["ops_per_call"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del got, want
     return dict(name="iou_match", route="cuda", source="openset_rcnn_tpu_torch/csrc/iou_match.cu",
-                replaces="openset_rcnn_tpu/ops/pallas/iou_match_kernel.py:100", max_abs_err=max_abs,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                replaces="openset_rcnn_tpu/ops/pallas/iou_match_kernel.py:100", library_ms=None,
+                **figures[TRAIN_BATCH], b16=figures[TRAIN_BATCH_BF16])
 
 
-def phase_roi_align_bwd(torch, dev):
-    """K2 f32 at the f32 train shapes (B=4), at the train_bf16 batch (B=16),
-    and on RoIs clustered around the GT (many RoIs adding into one cell)."""
-    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align_bwd, roi_align_bwd_plain
+def phase_launch_floor(torch, dev):
+    """An empty kernel (csrc/launch_floor.cu): its time per launch back to
+    back through ctypes (CUDA events) and on the device (profiler), at one
+    block and at a grid of 4 blocks per SM x 256 threads (K3's at B=16)."""
+    import ctypes
+
+    from openset_rcnn_tpu_torch.ops import _build
+
+    lib = _build.load("launch_floor", {"empty_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, blocks, threads in (("1x32", 1, 32), (f"{4 * sms}x256", 4 * sms, 256)):
+        run = lambda: _build.check(lib, "empty_launch", lib.empty_launch(blocks, threads, stream))
+        ms = time_ms(torch, run, 200)
+        dev_ms = device_ms(torch, run, 200, ("empty_kernel",))["empty_kernel"]
+        check(dev_ms > 0, "launch floor: the profiler saw no empty kernel")
+        out[label] = dict(ms=ms, device_ms=dev_ms)
+        print(f"launch floor: empty kernel, {blocks} x {threads} threads: {ms:.4f} ms per launch back to back "
+              f"(CUDA events around 200 calls), device {dev_ms:.4f} ms", flush=True)
+    return out
+
+
+def bwd_cases(torch, dev):
+    """K2 f32's inputs: (label, B, boxes, levels, cotangent) at the f32 train
+    shapes (B=4), at the train_bf16 batch (B=16), uniform and clustered
+    around the GT (many RoIs over one cell)."""
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels
 
     g = torch.Generator(device=dev).manual_seed(5)
-    R, C, P, S = TRAIN_ROIS, 256, 7, 2
-    H, W = BUCKET
-    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
-    figures = {}
+    R, C, P = TRAIN_ROIS, 256, 7
     for label, B, make_boxes in (("uniform", TRAIN_BATCH, roi_boxes), ("uniform", TRAIN_BATCH_BF16, roi_boxes),
                                  ("clustered", TRAIN_BATCH, clustered_boxes),
                                  ("clustered", TRAIN_BATCH_BF16, clustered_boxes)):
         boxes = make_boxes(torch, g, B, R, dev)
-        levels = assign_levels(boxes)
-        cot = torch.randn(B, R, P, P, C, generator=g, device=dev)
+        yield label, B, boxes, assign_levels(boxes), torch.randn(B, R, P, P, C, generator=g, device=dev)
+
+
+def phase_roi_align_bwd(torch, dev):
+    """K2 f32 on ``bwd_cases``: within tolerance of its plain version and
+    bitwise equal from launch to launch."""
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align_bwd, roi_align_bwd_plain
+
+    P, S = 7, 2
+    H, W = BUCKET
+    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
+    figures = {}
+    for label, B, boxes, levels, cot in bwd_cases(torch, dev):
+        R, C = cot.shape[1], cot.shape[-1]
         got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
+        again = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
         want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"roi_align_bwd ({label}, B={B}): two launches differ")
         scale = max(1.0, max(float(w.abs().max()) for w in want))
         max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
         check(max_abs <= BWD_TOL * scale,
               f"roi_align_bwd kernel vs plain ({label}, B={B}): max abs {max_abs} > {BWD_TOL} * {scale}")
-        del got
+        # both against the same sums in f64: which order strays further
+        exact = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S, acc_dtype=torch.float64)
+        kernel_exact = max(float((a.double() - e).abs().max()) for a, e in zip(got, exact))
+        plain_exact = max(float((w.double() - e).abs().max()) for w, e in zip(want, exact))
+        del got, again, exact
         ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S), 20)
         plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S), 2)
         # the cotangent, boxes and levels read once; the f32 accumulators written once
@@ -553,15 +662,38 @@ def phase_roi_align_bwd(torch, dev):
         bound_ms, bound_by = bound(n_bytes, cot.numel() * (S * S * ROI_BWD_FLOPS_PER_SAMPLE + 1))
         per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
         print(f"roi_align_bwd ({label}): B={B} R={R} C={C} RoIs per level {per_level}; max abs err {max_abs:.3e} "
-              f"(limit {BWD_TOL * scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {n_bytes / 1e9:.3f} GB of which {acc_bytes / 1e9:.3f} GB accumulators)", flush=True)
+              f"(limit {BWD_TOL * scale:.3e}; against the f64 sums: kernel {kernel_exact:.3e}, plain "
+              f"{plain_exact:.3e}); two launches bitwise equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e9:.3f} GB of which "
+              f"{acc_bytes / 1e9:.3f} GB accumulators)", flush=True)
         figures[f"{label}_b{B}"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                        bound_by=bound_by)
+                                        bound_by=bound_by, kernel_err_f64=kernel_exact, plain_err_f64=plain_exact)
         del want, cot
     main = figures[f"uniform_b{TRAIN_BATCH}"]
     return dict(name="roi_align_bwd", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                 replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", library_ms=None, **main,
                 **{k: v for k, v in figures.items() if k != f"uniform_b{TRAIN_BATCH}"})
+
+
+def timings(torch, dev):
+    """K3 and K2 f32 only, no gates (``--timings``): the wrapper's time
+    (CUDA events) and the device time per call (profiler)."""
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align_bwd
+
+    out = {}
+    for B in (TRAIN_BATCH, TRAIN_BATCH_BF16):
+        out[f"iou_match_b{B}"] = iou_timings(torch, *iou_case(torch, dev, B))
+    H, W = BUCKET
+    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
+    for label, B, boxes, levels, cot in bwd_cases(torch, dev):
+        run = lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, 2)
+        events = device_events(torch, run, 20)
+        out[f"roi_align_bwd_{label}_b{B}"] = dict(
+            ms=time_ms(torch, run, 20), device_ms=sum(t for _, t, _ in events) / 20,
+            kernel_device_ms=device_ms(torch, run, 20, ("roi_align_bwd_kernel",))["roi_align_bwd_kernel"],
+            ops_per_call=sum(count for _, _, count in events) / 20)
+        del cot
+    return out
 
 
 def group_grad_norms(model):
@@ -714,6 +846,14 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
         check(torch.equal(b, buffers[n]), f"{label}: buffer {n} changed")
     unmoved = [n for n, p in model.named_parameters() if n in before and torch.equal(p, before[n])]
     check(not unmoved, f"{label}: trainable parameters that did not move: {unmoved}")
+    n_params, differ, worst = repeat_step(torch, trainer, batch)
+    by_module = {}
+    for n in differ:
+        by_module[n.split(".")[0]] = by_module.get(n.split(".")[0], 0) + 1
+    print(f"{label}: two steps from one state on one batch: " + (
+        "parameters bitwise equal" if not differ else
+        f"{len(differ)} of {n_params} parameter tensors differ (largest difference {worst:.3e}; by module "
+        f"{json.dumps(by_module)}; first {differ[:3]})") + " (a finding, not a gate)", flush=True)
     print(f"{label}: {ms:.2f} ms/step ({batch_size * 1e3 / ms:.2f} img/s) at batch {batch_size} over {TRAIN_STEPS} "
           f"steps (per step {[round(x, 2) for x in step_ms]}; host clock {wall:.2f} ms/step); peak memory "
           f"{peak_gb:.2f} GB; {len(frozen)} frozen parameters and {len(buffers)} buffers unchanged, "
@@ -723,7 +863,31 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     print(f"{label}: launches over the timed steps " + json.dumps(launches), flush=True)
     print(f"{label} profile: " + json.dumps(profile), flush=True)
     return launches, dict(ms_per_step=ms, img_per_s=batch_size * 1e3 / ms, batch=batch_size, stages_ms=stages,
-                          peak_gb=peak_gb, device_idle_share=profile["idle_share"])
+                          peak_gb=peak_gb, device_idle_share=profile["idle_share"],
+                          repeat_bitwise=not differ, repeat_tensors_differing=len(differ))
+
+
+def repeat_step(torch, trainer, batch):
+    """Two Trainer.steps from one state (parameters, momentum, step count)
+    on one batch: (parameter tensors, the names of those that differ
+    between the two, the largest absolute difference)."""
+    import copy
+
+    state = trainer.state
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    momentum = copy.deepcopy(state.optimizer.state_dict())
+    step = state.step
+    trainer.step(batch)
+    first = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state.model.load_state_dict(params)
+    state.optimizer.load_state_dict(momentum)
+    state.step = step
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    second = {n: p.detach() for n, p in state.model.named_parameters()}
+    differ = [n for n, p in first.items() if not torch.equal(p, second[n])]
+    worst = max((float((first[n] - second[n]).abs().max()) for n in differ), default=0.0)
+    return len(first), differ, worst
 
 
 def phase_roi_align_window(torch, dev):
@@ -878,15 +1042,24 @@ def profile_step(torch, step):
     kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), key=lambda kv: -kv[1])
     own = {name: sum(ms for key, ms in kernels if name in key)
-           for name in ("roi_align_fwd_kernel", "roi_align_bwd_kernel", "roi_align_bwd_bf16_kernel", "iou_match_pass",
-                        "nms_iou_mask_kernel", "nms_walk_kernel")}
+           for name in ("roi_align_fwd_kernel", "roi_align_bwd_kernel", "roi_align_bwd_bf16_kernel",
+                        "iou_match_best_kernel", "iou_match_rescue_kernel", "nms_iou_mask_kernel", "nms_walk_kernel")}
     return dict(step_ms=step_ms, device_busy_ms=busy_ms, idle_share=max(0.0, 1.0 - busy_ms / step_ms),
                 kernel_ms_total=sum(ms for _, ms in kernels), own_kernels_ms=own,
                 top_kernels_ms=[[key[:60], round(ms, 3)] for key, ms in kernels[:8]])
 
 
+def ptxas_kernel(line):
+    """The kernel named in a line of ptxas's report (its mangled name carries
+    each identifier behind its length)."""
+    found = re.findall(r"\w*_kernel", line)
+    return re.split(r"\d+(?=[A-Za-z])", found[-1])[-1] if found else ""
+
+
 def main():
-    if not (ROOT / "openset_rcnn_tpu_torch" / "csrc").is_dir() or not CONFIG.exists():
+    only_timings = sys.argv[1:2] == ["--timings"]
+    root = Path(sys.argv[2]).resolve() if only_timings and len(sys.argv) > 2 else ROOT
+    if not (root / "openset_rcnn_tpu_torch" / "csrc").is_dir() or not CONFIG.exists():
         print("chip_smoke: run from the root of a checkout of the repository", file=sys.stderr)
         return 2
     import torch
@@ -894,7 +1067,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     from openset_rcnn_tpu_torch.ops import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -911,12 +1084,19 @@ def main():
     seconds, logs = _build.build()
     print(f"build: {seconds:.1f} s for {', '.join(logs) or 'nothing (already built)'}", flush=True)
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
+            if "Function properties for" in line or "Compiling entry function" in line:
+                kernel = ptxas_kernel(line)
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {kernel}: {line.strip()}")
 
+    if only_timings:
+        print(f"timings of the kernels of {root}: " + json.dumps(timings(torch, dev)))
+        return 0
     kernels = [phase_roi_align(torch, dev), phase_nms(torch, dev), phase_iou_match(torch, dev),
                phase_roi_align_bwd(torch, dev)]
+    launch_floor = phase_launch_floor(torch, dev)
     paths = {}
     window, paths["window"] = phase_roi_align_window(torch, dev)
     kernels += [phase_roi_align_bwd_bf16(torch, dev), window]
@@ -947,6 +1127,7 @@ def main():
             "bound_ms", "bound_by", "library_ms", "launches_by_path")
     for label, result in results.items():
         print(f"{label}: " + json.dumps(result))
+    print("launch floor: " + json.dumps(launch_floor))
     # the keys every entry carries first, then a kernel's own extra figures
     print(json.dumps({"kernels": [{**{k: entry[k] for k in keys}, **entry} for entry in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,91 +10,65 @@
 //
 // Inputs: the cotangent (B*R, P, P, C) f32; boxes (B*R, 4) f32 xyxy; levels
 // (B*R,) int32 in [0, 4). Output: four per-level accumulators
-// (B, H_l, W_l, C), which the caller rounds to the features' type. The f32
-// kernel adds into accumulators the caller zeroed; the bf16 kernel writes
-// every cell itself.
+// (B, H_l, W_l, C), f32 (roi_align_bwd, TPU.ROI_ALIGN_BWD pallas) or bf16
+// (roi_align_bwd_bf16, pallas_bf16), which the caller rounds to the
+// features' type. The kernel writes every cell, so the caller allocates
+// without zeroing.
 //
-// roi_align_bwd, f32 accumulators (TPU.ROI_ALIGN_BWD pallas). The TPU
-// kernel sums each RoI's window gradient once in f32 and adds it to the
-// accumulator window in one read-add-write (roi_align_v2.py:404-451); it is
-// race-free only because its grid runs in order. Here the RoIs of one image
-// overlap and run in parallel, so the adds into the accumulators are atomic.
-// Bound on the H100: bytes, the cotangent read and the f32 accumulators
-// written (0.144 ms at B=4, R=512, C=256 on the 832x1344 pyramid); what
-// limits a scatter is the number of atomic operations: one per (sample,
-// neighbour, channel) is 784 per RoI and channel at (7, 2), most of them
-// into a cell the same RoI has just added to.
+// What the TPU kernel computes: per RoI, the f32 window gradient (the two
+// interpolation steps transposed: d(x-interp), then d(y-interp)), added to
+// the accumulator window in one read-add-write (roi_align_v2.py:404-451),
+// so every (RoI, cell, channel) contribution is one add in the accumulator's
+// type (one bf16 rounding in the bf16 mode), and a cell sees its image's
+// RoIs in index order (the image-interleaved grid, roi_align_v2.py:527-539).
+// It is race-free only because its grid runs in order.
 //
-// Design: the TPU kernel's form, with one atomic per touched cell. One
-// 256-thread block per RoI.
-//   * The sample geometry of the RoI's y and x axes (the forward's
-//     operations, sample_at), then per axis the distinct rows (columns) that
-//     its 2 * P * S neighbour entries reach, ascending, and for each the list
-//     of (bin, weight * in_range) entries in the TPU kernel's sample order
-//     (collect_entries, which the bf16 kernel calls too), stored CSR-style:
-//     each axis has exactly 2 * P * S entries, so P * S <= 32 fits.
-//   * The warps take the touched cells (rows x columns) in turn; a lane holds
-//     8 channels as two float4 groups. For each cell it sums the f32 window
-//     gradient as the TPU kernel does: d(x-interp) over the column's entries,
-//     then d(y-interp) over the row's entries, the cotangent scaled by
-//     1/count and read through L1. Then one 16-byte vector atomicAdd (sm_90)
-//     adds it to the accumulator; scalar atomics where C % 4 != 0 or a
-//     pointer is not 16-byte aligned. Cells whose entries all have weight 0
-//     (samples outside the map) are skipped.
-// Each RoI's contribution is thus its f32 window sum, rounded as JAX rounds
-// it; only the order of the RoIs within a cell changes from run to run, so
-// the card holds the kernel to its plain version within a tolerance. Times
-// of this design and of the one it replaced: PERF.md.
+// Bound on the H100: bytes, the cotangent read and the accumulators written
+// once: at R=512, C=256 on the 832x1344 pyramid 0.144 ms f32 at B=4 and
+// 0.350 ms bf16 at B=16 (3.35 TB/s). Here the RoIs run in parallel: a
+// scatter needs atomics (an f32 atomic add per cell, a CAS loop per bf16
+// pair), whose order changes from run to run.
 //
-// roi_align_bwd_bf16, bf16 accumulators (TPU.ROI_ALIGN_BWD pallas_bf16): the
-// TPU kernel sums each RoI's window gradient in f32 and adds it to the bf16
-// accumulator window in one read-add-write (roi_align_v2.py:444-451), so
-// every (RoI, cell, channel) contribution is rounded to bf16 once, and a
-// cell sees its image's RoIs in index order (the image-interleaved grid,
-// roi_align_v2.py:527-539).
-//
-// Bound on the H100: bytes. At B=16, R=512, C=256 on the 832x1344 pyramid
-// the cotangent read is 0.411 GB and the bf16 accumulators written 0.760 GB:
-// 0.350 ms at 3.35 TB/s. A scatter into bf16 words needs a CAS loop per
-// cell and channel pair, each waiting its round trip to L2, and leaves the
-// order of a cell's roundings to the scheduler.
-//
-// Design (the times of this design and of the variants tried are in
-// PERF.md): a gather, with owners instead of atomics. One block owns one tile
-// of 8 x 16 cells of one (image, level) and a slice of 256 channels (all of
-// them at C = 256); each of its 1024 threads owns 4 cells x 8 channels, their
-// bf16 accumulators held in registers as packed bf16x2.
+// Design: a gather, with owners instead of atomics (the times of this design
+// and of those it replaced are in PERF.md). One template serves both modes;
+// an accumulator policy (F32Acc, Bf16Acc) fixes how a thread holds its
+// channels. One block owns one tile of 8 x 16 cells of one (image, level)
+// and a slice of channels; each of its 1024 threads owns 4 cells x kVec
+// channels in registers: bf16 8 channels as packed bf16x2 (a 256-channel
+// slice), f32 4 channels (a 128-channel slice, two slices at C = 256), so
+// both hold 16 accumulator registers.
 //   * The block scans its image's R RoIs in index order, 1024 at a time, and
 //     keeps (warp ballot, then a prefix over the warps) those of its level
 //     whose touched cells meet the tile. Sample positions are monotone in the
 //     sample index, so the two end samples of each axis, computed by the
-//     forward's own geometry, bound the touched rows and columns. The kept
-//     list is in ascending RoI order by construction; nothing is sorted.
-//   * Kept RoIs go in rounds of 8: the sample geometry of all 8 (the
-//     forward's operations), then, per RoI and per tile row and column, the
-//     list of (bin, weight) entries that reach it, in the TPU kernel's
-//     sample order (sub-sample-major, the lower neighbour's entry before the
-//     upper one's, so an edge-clamped neighbour takes two separate adds,
+//     forward's own geometry (sample_at), bound the touched rows and columns.
+//     The kept list is in ascending RoI order by construction.
+//   * Kept RoIs go in rounds of 8: the sample geometry of all 8, then, per
+//     RoI and per tile row and column, the list of (bin, weight * in_range)
+//     entries that reach it, in the TPU kernel's sample order
+//     (collect_entries: sub-sample-major, the lower neighbour's entry before
+//     the upper one's, so an edge-clamped neighbour takes two separate adds,
 //     roi_align_v2.py:414-442). Three barriers per round, not per RoI.
-//   * Each thread computes its cells' f32 window gradient exactly as the TPU
-//     kernel does, d(x-interp) over the column's entries, then d(y-interp)
-//     over the row's entries, reading the cotangent (scaled by 1/count)
-//     through L1, and applies acc = bf16(f32(acc) + win) in registers, RoI
-//     after RoI. Cells a RoI does not touch are skipped (acc + 0 == acc).
-//   * At the end the block writes its tile once with 16-byte stores, zeros
-//     included, so the caller allocates without zeroing.
+//   * Each thread computes its cells' f32 window gradient as the TPU kernel
+//     does, d(x-interp) over the column's entries, then d(y-interp) over the
+//     row's entries, reading the cotangent (scaled by 1/count) through L1,
+//     and applies it in registers, RoI after RoI: acc = acc + win (f32) or
+//     acc = bf16(f32(acc) + win) (bf16). Cells a RoI does not touch are
+//     skipped (acc + 0 == acc).
+//   * At the end the block writes its tile once with 16-byte stores (scalar
+//     stores where C is not a multiple of kVec or a pointer is not 16-byte
+//     aligned), zeros included.
 // Deterministic: there are no atomics, and every cell applies its image's
 // RoIs in index order, the TPU's order, so two launches are bitwise equal.
-// The f32 window sums follow the TPU kernel's order, operation for
-// operation; the plain version sums them in another order, so the card
-// compares against it by tolerance.
+// The window sums follow the TPU kernel's order, operation for operation;
+// the plain version sums in another order, so the card compares against it
+// by tolerance.
 //
-// Why 1024 threads over all 256 channels: every block repeats the scan and
-// the rounds' geometry for its tile, so narrower channel slices multiply
-// that work; the cotangent is read through L1 rather than staged, since a
-// round's 8 RoIs x 49 bins x 256 channels would not fit shared memory. The
-// cost is that one block fills an SM's registers, so nothing overlaps a
-// block's barrier phases, and a cell under a small RoI walks up to
+// Costs: every block repeats the scan and the rounds' geometry for its tile
+// (twice per tile at C = 256 in the f32 mode); the cotangent is read through
+// L1 rather than staged, since a round's 8 RoIs x 49 bins x C channels would
+// not fit shared memory; one block fills an SM's registers, so nothing
+// overlaps a block's barrier phases; a cell under a small RoI walks up to
 // (2*P*S)^2 entries while the rest of the block waits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,15 +77,6 @@
 namespace {
 
 constexpr int kLevels = 4;
-constexpr int kMaxSamples = 32;                   // out_size * sampling_ratio per axis
-constexpr int kMaxAxisEntries = 2 * kMaxSamples;  // (bin, weight) entries of one axis of one RoI
-
-struct Levels {
-  float* grad[kLevels];
-  int h[kLevels];
-  int w[kLevels];
-  float inv_stride[kLevels];
-};
 
 struct Sample {
   int lo, hi;  // floor neighbour, min(floor + 1, extent - 1)
@@ -163,175 +128,76 @@ __device__ __forceinline__ int collect_entries(const int* lo, const int* hi, con
   return m;
 }
 
-// ------------------------------------------------------------- f32 accumulators
-
-constexpr int kF32Threads = 256;
-constexpr int kF32Vec = 8;  // channels per lane and pass: two float4 groups, 128 channels apart
-
-// n (<= 4) cotangent values / count from p: a 16-byte load when vec, else
-// masked scalar loads, zero beyond n
-__device__ __forceinline__ void load4(const float* p, int n, bool vec, float inv_count, float* out) {
-  if (vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  } else {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) out[v] = v < n ? __ldg(p + v) : 0.0f;
-  }
-#pragma unroll
-  for (int v = 0; v < 4; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
-}
-
-// acc[0..n) += win[0..n): one 16-byte vector reduction when vec, else scalar
-__device__ __forceinline__ void add4(float* acc, int n, bool vec, const float* win) {
-  if (vec) {
-    atomicAdd(reinterpret_cast<float4*>(acc), make_float4(win[0], win[1], win[2], win[3]));
-  } else {
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      if (v < n) atomicAdd(acc + v, win[v]);
-  }
-}
-
-__global__ void __launch_bounds__(kF32Threads) roi_align_bwd_kernel(
-    Levels lv, const float* __restrict__ boxes, const int* __restrict__ levels, const float* __restrict__ cot,
-    int R, int C, int P, int S, bool vec) {
-  __shared__ int s_lo[2][kMaxSamples];  // [axis][sample], samples bin-major as the forward's
-  __shared__ int s_hi[2][kMaxSamples];
-  __shared__ float s_frac[2][kMaxSamples];
-  __shared__ float s_ok[2][kMaxSamples];
-  __shared__ int s_cand[2][kMaxAxisEntries];  // [axis][2 * sample + upper]: the cell it reaches
-  __shared__ unsigned char s_first[2][kMaxAxisEntries];
-  // [axis][k]: the k-th touched row or column, ascending; its entries are
-  // s_bin/s_wt[axis][s_off[k] .. s_off[k + 1])
-  __shared__ int s_cell[2][kMaxAxisEntries];
-  __shared__ int s_off[2][kMaxAxisEntries + 1];
-  __shared__ unsigned char s_live[2][kMaxAxisEntries];  // some entry has a nonzero weight
-  __shared__ int s_ncell[2];
-  __shared__ unsigned char s_bin[2][kMaxAxisEntries];
-  __shared__ float s_wt[2][kMaxAxisEntries];
-
-  const int roi = blockIdx.x;
-  const int b = roi / R;
-  const int l = levels[roi];
-  const int H = lv.h[l];
-  const int W = lv.w[l];
-  const int PS = P * S, NE = 2 * PS;
-  const int t = threadIdx.x;
-
-  if (t < 2 * PS) {
-    const int axis = t < PS ? 0 : 1;  // 0: y, 1: x
-    const int idx = t - axis * PS;
-    const float scale = lv.inv_stride[l];
-    const float* bx = boxes + 4 * (size_t)roi;
-    const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
-    const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
-    const Sample s = sample_at(lo, hi, P, S, idx, axis == 0 ? H : W);
-    s_lo[axis][idx] = s.lo;
-    s_hi[axis][idx] = s.hi;
-    s_frac[axis][idx] = s.frac;
-    s_ok[axis][idx] = s.ok;
-  }
-  __syncthreads();
-  // each axis's 2 * P * S neighbour entries: which is the first to reach its cell
-  const int axis = t / NE, e = t % NE;
-  int v = 0;
-  if (t < 2 * NE) {
-    v = (e & 1) ? s_hi[axis][e >> 1] : s_lo[axis][e >> 1];
-    bool first = true;
-    for (int f = 0; f < e; ++f) first = first && ((f & 1) ? s_hi[axis][f >> 1] : s_lo[axis][f >> 1]) != v;
-    s_cand[axis][e] = v;
-    s_first[axis][e] = first;
-  }
-  __syncthreads();
-  // the first entry of each touched cell files the cell and its entry list
-  if (t < 2 * NE && s_first[axis][e]) {
-    int rank = 0, off = 0;
-    for (int f = 0; f < NE; ++f) {
-      if (s_cand[axis][f] < v) {
-        ++off;
-        rank += s_first[axis][f];
-      }
-    }
-    const int m = collect_entries(s_lo[axis], s_hi[axis], s_frac[axis], s_ok[axis], P, S, v, s_bin[axis] + off,
-                                  s_wt[axis] + off);
-    bool live = false;
-    for (int f = 0; f < m; ++f) live = live || s_wt[axis][off + f] != 0.0f;
-    s_cell[axis][rank] = v;
-    s_off[axis][rank] = off;
-    s_live[axis][rank] = live;
-    if (off + m == NE) {  // the last touched cell
-      s_ncell[axis] = rank + 1;
-      s_off[axis][rank + 1] = NE;
-    }
-  }
-  __syncthreads();
-
-  // each touched cell's window gradient, summed once, added once
-  const int ny = s_ncell[0], nx = s_ncell[1];
-  const int lane = t & 31, warp = t >> 5;
-  float* acc = lv.grad[l] + (size_t)b * H * W * C;
-  const float* g = cot + (size_t)roi * P * P * C;
-  const float inv_count = 1.0f / (float)(S * S);
-  for (int cell = warp; cell < ny * nx; cell += kF32Threads / 32) {
-    const int ry = cell / nx, rx = cell % nx;
-    if (!s_live[0][ry] || !s_live[1][rx]) continue;
-    const int e0 = s_off[0][ry], e1 = s_off[0][ry + 1];
-    const int f0 = s_off[1][rx], f1 = s_off[1][rx + 1];
-    float* dst = acc + ((size_t)s_cell[0][ry] * W + s_cell[1][rx]) * C;
-    for (int c0 = 4 * lane; c0 < C; c0 += 32 * kF32Vec) {
-      const int c1 = c0 + 128;  // the lane's second group
-      const int n0 = min(4, C - c0), n1 = min(4, C - c1);
-      float win[kF32Vec];
-#pragma unroll
-      for (int k = 0; k < kF32Vec; ++k) win[k] = 0.0f;
-      for (int ei = e0; ei < e1; ++ei) {
-        // d(x-interp) of y-bin s_bin[0][ei] at this column, then its d(y-interp)
-        const float* row = g + (size_t)s_bin[0][ei] * P * C;
-        float dt1[kF32Vec];
-#pragma unroll
-        for (int k = 0; k < kF32Vec; ++k) dt1[k] = 0.0f;
-        for (int fi = f0; fi < f1; ++fi) {
-          const float* p = row + (size_t)s_bin[1][fi] * C;
-          const float wx = s_wt[1][fi];
-          float cv[kF32Vec];
-          load4(p + c0, n0, vec, inv_count, cv);
-          if (n1 > 0) {
-            load4(p + c1, n1, vec, inv_count, cv + 4);
-          } else {
-#pragma unroll
-            for (int k = 4; k < kF32Vec; ++k) cv[k] = 0.0f;
-          }
-#pragma unroll
-          for (int k = 0; k < kF32Vec; ++k) dt1[k] = dt1[k] + cv[k] * wx;
-        }
-        const float wy = s_wt[0][ei];
-#pragma unroll
-        for (int k = 0; k < kF32Vec; ++k) win[k] = win[k] + dt1[k] * wy;
-      }
-      add4(dst + c0, n0, vec, win);
-      if (n1 > 0) add4(dst + c1, n1, vec, win + 4);
-    }
-  }
-}
-
-// ------------------------------------------------------------ bf16 accumulators
+// ---------------------------------------------------------- the owner kernel
+//
+// One template for both accumulator types; an accumulator policy says how
+// a thread holds its channels, adds a window sum and stores its cells.
 
 constexpr int kTileH = 8;    // cells per tile: rows
 constexpr int kTileW = 16;   // and columns
 constexpr int kLists = kTileH + kTileW;  // entry lists per RoI: tile rows, then tile columns
-constexpr int kCSlice = 256;  // channels per block
-constexpr int kVec = 8;       // channels per thread: one 16-byte bf16 store
 constexpr int kThreads = 1024;
-constexpr int kGroups = kCSlice / kVec;                     // 32
+constexpr int kGroups = 32;                                 // channel groups per block: a warp's lanes
 constexpr int kOwners = kThreads / kGroups;                 // 32
 constexpr int kCellsPerThread = kTileH * kTileW / kOwners;  // 4
 constexpr int kRoiGroup = 8;                                // kept RoIs prepared per round
-constexpr int kMaxPS = 16;                                  // out_size * sampling_ratio
-constexpr int kMaxEntries = 2 * kMaxPS;                     // (bin, weight) entries of a row or column
 
-struct LevelsBf16 {
-  __nv_bfloat16* acc[kLevels];
+// bf16 accumulators: 8 channels a thread, packed as bf16x2 words, rounded
+// once per RoI (acc = bf16(f32(acc) + win)); P * S <= 16.
+struct Bf16Acc {
+  using Elem = __nv_bfloat16;
+  using Word = unsigned int;
+  static constexpr int kVec = 8;    // channels per thread: one 16-byte store
+  static constexpr int kWords = 4;
+  static constexpr int kMaxPS = 16;
+
+  __device__ static float lo_f32(unsigned int w) { return __uint_as_float(w << 16); }
+  __device__ static float hi_f32(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
+  __device__ static void add(Word* acc, const float* win) {
+#pragma unroll
+    for (int v = 0; v < kWords; ++v) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(lo_f32(acc[v]) + win[2 * v], hi_f32(acc[v]) + win[2 * v + 1]);
+      acc[v] = *reinterpret_cast<unsigned int*>(&h);
+    }
+  }
+  __device__ static void store(Elem* p, const Word* acc, int n, bool vec) {
+    if (vec) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        if (v < n) q[v] = (unsigned short)((v & 1) ? acc[v / 2] >> 16 : acc[v / 2] & 0xffffu);
+    }
+  }
+};
+
+// f32 accumulators: 4 channels a thread (as many accumulator registers as
+// the bf16 policy), acc = acc + win; P * S <= 32.
+struct F32Acc {
+  using Elem = float;
+  using Word = float;
+  static constexpr int kVec = 4;    // channels per thread: one 16-byte store
+  static constexpr int kWords = 4;
+  static constexpr int kMaxPS = 32;
+
+  __device__ static void add(Word* acc, const float* win) {
+#pragma unroll
+    for (int v = 0; v < kWords; ++v) acc[v] = acc[v] + win[v];
+  }
+  __device__ static void store(Elem* p, const Word* acc, int n, bool vec) {
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        if (v < n) p[v] = acc[v];
+    }
+  }
+};
+
+struct OwnerLevels {
+  void* acc[kLevels];
   int h[kLevels];
   int w[kLevels];
   float inv_stride[kLevels];
@@ -339,14 +205,33 @@ struct LevelsBf16 {
   int tile_start[kLevels + 1];  // each level's first tile within an image; [kLevels]: tiles per image
 };
 
-// kVec cotangent values / count from p: two 16-byte loads when vec, else
+// The block's shared memory (dynamic: above 48 KB for the f32 policy's
+// 32-sample axes).
+template <class Acc>
+struct OwnerShared {
+  int keep[kThreads];           // kept RoIs of the chunk, ascending
+  int warp[kThreads / 32 + 1];  // kept per warp -> prefix; [last]: total
+  // [RoI of the round][axis][sample], samples bin-major as the forward's
+  int lo[kRoiGroup][2][Acc::kMaxPS];
+  int hi[kRoiGroup][2][Acc::kMaxPS];
+  float frac[kRoiGroup][2][Acc::kMaxPS];
+  float ok[kRoiGroup][2][Acc::kMaxPS];
+  // [RoI of the round][tile row, then tile column]: entries reaching it
+  int n[kRoiGroup][kLists];
+  float wt[kRoiGroup][kLists][2 * Acc::kMaxPS];           // entry: its weight * in_range
+  unsigned char bin[kRoiGroup][kLists][2 * Acc::kMaxPS];  // entry: the sample's bin on that axis
+};
+
+// kVec cotangent values / count from p: 16-byte loads when vec, else
 // masked scalar loads, zero beyond n
+template <int kVec>
 __device__ __forceinline__ void load_cot(const float* p, int n, bool vec, float inv_count, float* out) {
   if (vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + q);
+      out[4 * q] = a.x; out[4 * q + 1] = a.y; out[4 * q + 2] = a.z; out[4 * q + 3] = a.w;
+    }
   } else {
 #pragma unroll
     for (int v = 0; v < kVec; ++v) out[v] = v < n ? __ldg(p + v) : 0.0f;
@@ -355,28 +240,11 @@ __device__ __forceinline__ void load_cot(const float* p, int n, bool vec, float 
   for (int v = 0; v < kVec; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
 }
 
-__device__ __forceinline__ float lo_f32(unsigned int w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_f32(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned int*>(&h);
-}
-
-__global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
-    LevelsBf16 lv, const float* __restrict__ boxes, const int* __restrict__ levels,
-    const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
-  __shared__ int s_keep[kThreads];           // kept RoIs of the chunk, ascending
-  __shared__ int s_warp[kThreads / 32 + 1];  // kept per warp -> prefix; [last]: total
-  // [RoI of the round][axis][sample], samples bin-major as the forward's
-  __shared__ int s_lo[kRoiGroup][2][kMaxPS];
-  __shared__ int s_hi[kRoiGroup][2][kMaxPS];
-  __shared__ float s_frac[kRoiGroup][2][kMaxPS];
-  __shared__ float s_ok[kRoiGroup][2][kMaxPS];
-  // [RoI of the round][tile row, then tile column]: entries reaching it
-  __shared__ int s_n[kRoiGroup][kLists];
-  __shared__ unsigned char s_bin[kRoiGroup][kLists][kMaxEntries];  // entry: the sample's bin on that axis
-  __shared__ float s_wt[kRoiGroup][kLists][kMaxEntries];           // entry: its weight * in_range
-
+template <class Acc>
+__device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLevels& lv,
+                                           const float* __restrict__ boxes, const int* __restrict__ levels,
+                                           const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
+  constexpr int kVec = Acc::kVec;
   const int per_image = lv.tile_start[kLevels];
   const int b = blockIdx.x / per_image;
   int tile = blockIdx.x % per_image;
@@ -389,19 +257,18 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
   const int tx0 = (tile % lv.tiles_x[l]) * kTileW;
   const int t = threadIdx.x;
   const int grp = t % kGroups, owner = t / kGroups;
-  const int c = blockIdx.y * kCSlice + grp * kVec;
+  const int c = (blockIdx.y * kGroups + grp) * kVec;
   const int n = min(kVec, C - c);  // this thread's channels; <= 0: none
   const int PS = P * S;
   const float scale = lv.inv_stride[l];
   const float inv_count = 1.0f / (float)(S * S);
   const int lane = t & 31, warp = t >> 5;
 
-  // the owned cells' bf16 accumulators, channel pairs packed as bf16x2
-  unsigned int acc[kCellsPerThread][kVec / 2];
+  typename Acc::Word acc[kCellsPerThread][Acc::kWords];
 #pragma unroll
   for (int i = 0; i < kCellsPerThread; ++i)
 #pragma unroll
-    for (int v = 0; v < kVec / 2; ++v) acc[i][v] = 0u;
+    for (int v = 0; v < Acc::kWords; ++v) acc[i][v] = 0;
 
   for (int chunk = 0; chunk < R; chunk += kThreads) {
     // keep the chunk's RoIs of this level whose touched cells meet the tile
@@ -417,20 +284,20 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
             max(xa.hi, xb.hi) >= tx0 && min(xa.lo, xb.lo) < tx0 + kTileW;
     }
     const unsigned int mask = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_warp[warp] = __popc(mask);
+    if (lane == 0) sh.warp[warp] = __popc(mask);
     __syncthreads();
     if (t == 0) {
       int sum = 0;
       for (int w = 0; w < kThreads / 32; ++w) {
-        const int k = s_warp[w];
-        s_warp[w] = sum;
+        const int k = sh.warp[w];
+        sh.warp[w] = sum;
         sum += k;
       }
-      s_warp[kThreads / 32] = sum;
+      sh.warp[kThreads / 32] = sum;
     }
     __syncthreads();
-    if (hit) s_keep[s_warp[warp] + __popc(mask & ((1u << lane) - 1u))] = r;
-    const int n_keep = s_warp[kThreads / 32];
+    if (hit) sh.keep[sh.warp[warp] + __popc(mask & ((1u << lane) - 1u))] = r;
+    const int n_keep = sh.warp[kThreads / 32];
     __syncthreads();
 
     for (int k0 = 0; k0 < n_keep; k0 += kRoiGroup) {
@@ -440,14 +307,14 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
         const int k = t / (2 * PS), j = t % (2 * PS);
         const int axis = j < PS ? 0 : 1;  // 0: y, 1: x
         const int idx = j - axis * PS;
-        const float* bx = boxes + 4 * ((size_t)b * R + s_keep[k0 + k]);
+        const float* bx = boxes + 4 * ((size_t)b * R + sh.keep[k0 + k]);
         const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
         const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
         const Sample s = sample_at(lo, hi, P, S, idx, axis == 0 ? H : W);
-        s_lo[k][axis][idx] = s.lo;
-        s_hi[k][axis][idx] = s.hi;
-        s_frac[k][axis][idx] = s.frac;
-        s_ok[k][axis][idx] = s.ok;
+        sh.lo[k][axis][idx] = s.lo;
+        sh.hi[k][axis][idx] = s.hi;
+        sh.frac[k][axis][idx] = s.frac;
+        sh.ok[k][axis][idx] = s.ok;
       }
       __syncthreads();
       // each tile row's and column's entries, in the TPU kernel's sample
@@ -456,42 +323,40 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
         const int k = t / kLists, j = t % kLists;
         const int axis = j < kTileH ? 0 : 1;
         const int cell = axis == 0 ? ty0 + j : tx0 + j - kTileH;
-        s_n[k][j] = collect_entries(s_lo[k][axis], s_hi[k][axis], s_frac[k][axis], s_ok[k][axis], P, S, cell,
-                                    s_bin[k][j], s_wt[k][j]);
+        sh.n[k][j] = collect_entries(sh.lo[k][axis], sh.hi[k][axis], sh.frac[k][axis], sh.ok[k][axis], P, S, cell,
+                                     sh.bin[k][j], sh.wt[k][j]);
       }
       __syncthreads();
       if (n > 0) {
         for (int k = 0; k < kg; ++k) {  // the round's RoIs, in index order
-          const float* g = cot + ((size_t)b * R + s_keep[k0 + k]) * P * P * C + c;
+          const float* g = cot + ((size_t)b * R + sh.keep[k0 + k]) * P * P * C + c;
 #pragma unroll
           for (int i = 0; i < kCellsPerThread; ++i) {
             const int cell = owner + i * kOwners;
             const int ty = cell / kTileW, tx = kTileH + cell % kTileW;
-            const int ny = s_n[k][ty], nx = s_n[k][tx];
-            if (ny == 0 || nx == 0) continue;
+            const int ny = sh.n[k][ty], nx = sh.n[k][tx];
+            if (ny == 0 || nx == 0) continue;  // untouched: acc + 0 == acc
             float win[kVec];
 #pragma unroll
             for (int v = 0; v < kVec; ++v) win[v] = 0.0f;
             for (int e = 0; e < ny; ++e) {
               // d(x-interp) of y-bin pb at this column, then its d(y-interp)
-              const float* row = g + (size_t)s_bin[k][ty][e] * P * C;
+              const float* row = g + (size_t)sh.bin[k][ty][e] * P * C;
               float dt1[kVec];
 #pragma unroll
               for (int v = 0; v < kVec; ++v) dt1[v] = 0.0f;
               for (int f = 0; f < nx; ++f) {
                 float cv[kVec];
-                load_cot(row + (size_t)s_bin[k][tx][f] * C, n, vec, inv_count, cv);
-                const float wx = s_wt[k][tx][f];
+                load_cot<kVec>(row + (size_t)sh.bin[k][tx][f] * C, n, vec, inv_count, cv);
+                const float wx = sh.wt[k][tx][f];
 #pragma unroll
                 for (int v = 0; v < kVec; ++v) dt1[v] = dt1[v] + cv[v] * wx;
               }
-              const float wy = s_wt[k][ty][e];
+              const float wy = sh.wt[k][ty][e];
 #pragma unroll
               for (int v = 0; v < kVec; ++v) win[v] = win[v] + dt1[v] * wy;
             }
-#pragma unroll
-            for (int v = 0; v < kVec / 2; ++v)
-              acc[i][v] = pack_bf16x2(lo_f32(acc[i][v]) + win[2 * v], hi_f32(acc[i][v]) + win[2 * v + 1]);
+            Acc::add(acc[i], win);
           }
         }
       }
@@ -501,21 +366,61 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
 
   // the tile, written once
   if (n <= 0) return;
+  typename Acc::Elem* base = static_cast<typename Acc::Elem*>(lv.acc[l]);
 #pragma unroll
   for (int i = 0; i < kCellsPerThread; ++i) {
     const int cell = owner + i * kOwners;
     const int y = ty0 + cell / kTileW, x = tx0 + cell % kTileW;
     if (y >= H || x >= W) continue;
-    __nv_bfloat16* p = lv.acc[l] + (((size_t)b * H + y) * W + x) * C + c;
-    if (vec) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-      unsigned short* q = reinterpret_cast<unsigned short*>(p);
-#pragma unroll
-      for (int v = 0; v < kVec; ++v)
-        if (v < n) q[v] = (unsigned short)((v & 1) ? acc[i][v / 2] >> 16 : acc[i][v / 2] & 0xffffu);
-    }
+    Acc::store(base + (((size_t)b * H + y) * W + x) * C + c, acc[i], n, vec);
   }
+}
+
+// Two entry points with their own names, so a profile tells the modes apart.
+__global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
+    OwnerLevels lv, const float* __restrict__ boxes, const int* __restrict__ levels,
+    const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  owner_body<F32Acc>(*reinterpret_cast<OwnerShared<F32Acc>*>(smem), lv, boxes, levels, cot, R, C, P, S, vec);
+}
+
+__global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
+    OwnerLevels lv, const float* __restrict__ boxes, const int* __restrict__ levels,
+    const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  owner_body<Bf16Acc>(*reinterpret_cast<OwnerShared<Bf16Acc>*>(smem), lv, boxes, levels, cot, R, C, P, S, vec);
+}
+
+using OwnerKernel = void (*)(OwnerLevels, const float*, const int*, const float*, int, int, int, int, bool);
+
+// Tiles every (image, level) of the grid, one block per tile and slice of
+// kGroups * kVec channels; returns cudaGetLastError() after the launch.
+template <class Acc>
+int launch_owner(OwnerKernel kernel, void* const* accs, const int* hw, const float* inv_stride,
+                 const float* boxes, const int* levels, const float* cot, int n_rois, int rois_per_image,
+                 int C, int P, int S, void* stream) {
+  if (P < 1 || S < 1 || P * S > Acc::kMaxPS || C < 1 || n_rois <= 0 || rois_per_image <= 0)
+    return (int)cudaErrorInvalidValue;
+  OwnerLevels lv;
+  bool vec = C % Acc::kVec == 0 && ((uintptr_t)cot % 16) == 0;
+  lv.tile_start[0] = 0;
+  for (int i = 0; i < kLevels; ++i) {
+    lv.acc[i] = accs[i];
+    lv.h[i] = hw[2 * i];
+    lv.w[i] = hw[2 * i + 1];
+    lv.inv_stride[i] = inv_stride[i];
+    vec = vec && ((uintptr_t)accs[i] % 16) == 0;
+    lv.tiles_x[i] = (lv.w[i] + kTileW - 1) / kTileW;
+    lv.tile_start[i + 1] = lv.tile_start[i] + lv.tiles_x[i] * ((lv.h[i] + kTileH - 1) / kTileH);
+  }
+  const int smem = (int)sizeof(OwnerShared<Acc>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int batch = n_rois / rois_per_image;
+  const int slice = kGroups * Acc::kVec;
+  const dim3 grid(batch * lv.tile_start[kLevels], (C + slice - 1) / slice);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(lv, boxes, levels, cot, rois_per_image, C, P, S, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -524,59 +429,33 @@ extern "C" {
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// grads: 4 NHWC f32 level accumulators with their (h, w) and 1/stride,
-// zeroed by the caller. Returns cudaGetLastError() after the launch (0 on
-// success).
+// grads: 4 NHWC f32 level accumulators with their (h, w) and 1/stride; the
+// kernel writes every cell (no zeroing needed); P * S <= 32. Returns
+// cudaGetLastError() after the launch (0 on success).
 int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1, int h2,
                   int w2, int h3, int w3, float s0, float s1, float s2, float s3,
                   const float* boxes, const int* levels, const float* cot, int n_rois,
                   int rois_per_image, int C, int P, int S, void* stream) {
-  if (P < 1 || S < 1 || P * S > kMaxSamples || C < 1 || n_rois <= 0 || rois_per_image <= 0)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  lv.grad[0] = (float*)g0;
-  lv.grad[1] = (float*)g1;
-  lv.grad[2] = (float*)g2;
-  lv.grad[3] = (float*)g3;
-  lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
-  lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
-  lv.inv_stride[0] = s0; lv.inv_stride[1] = s1; lv.inv_stride[2] = s2; lv.inv_stride[3] = s3;
-  bool vec = C % 4 == 0 && ((uintptr_t)cot % 16) == 0;
-  for (int i = 0; i < kLevels; ++i) vec = vec && ((uintptr_t)lv.grad[i] % 16) == 0;
-  roi_align_bwd_kernel<<<n_rois, kF32Threads, 0, (cudaStream_t)stream>>>(
-      lv, boxes, levels, cot, rois_per_image, C, P, S, vec);
-  return (int)cudaGetLastError();
+  void* accs[kLevels] = {g0, g1, g2, g3};
+  const int hw[2 * kLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  const float inv_stride[kLevels] = {s0, s1, s2, s3};
+  return launch_owner<F32Acc>(roi_align_bwd_kernel, accs, hw, inv_stride, boxes, levels, cot, n_rois,
+                              rois_per_image, C, P, S, stream);
 }
 
 // bf16 accumulators: grads are 4 NHWC bf16 level accumulators, every cell
-// written by the kernel (no zeroing needed); C even and P * S <= 16.
-// Returns cudaGetLastError() after the launch (0 on success).
+// written by the kernel; C even and P * S <= 16. Returns cudaGetLastError()
+// after the launch (0 on success).
 int roi_align_bwd_bf16(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1,
                        int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
                        const float* boxes, const int* levels, const float* cot, int n_rois,
                        int rois_per_image, int C, int P, int S, void* stream) {
-  if (P < 1 || S < 1 || P * S > kMaxPS || (C & 1) || C < 2 || n_rois <= 0 || rois_per_image <= 0)
-    return (int)cudaErrorInvalidValue;
-  LevelsBf16 lv;
-  lv.acc[0] = (__nv_bfloat16*)g0;
-  lv.acc[1] = (__nv_bfloat16*)g1;
-  lv.acc[2] = (__nv_bfloat16*)g2;
-  lv.acc[3] = (__nv_bfloat16*)g3;
-  lv.h[0] = h0; lv.h[1] = h1; lv.h[2] = h2; lv.h[3] = h3;
-  lv.w[0] = w0; lv.w[1] = w1; lv.w[2] = w2; lv.w[3] = w3;
-  lv.inv_stride[0] = s0; lv.inv_stride[1] = s1; lv.inv_stride[2] = s2; lv.inv_stride[3] = s3;
-  bool vec = C % kVec == 0 && ((uintptr_t)cot % 16) == 0;
-  lv.tile_start[0] = 0;
-  for (int i = 0; i < kLevels; ++i) {
-    vec = vec && ((uintptr_t)lv.acc[i] % 16) == 0;
-    lv.tiles_x[i] = (lv.w[i] + kTileW - 1) / kTileW;
-    lv.tile_start[i + 1] = lv.tile_start[i] + lv.tiles_x[i] * ((lv.h[i] + kTileH - 1) / kTileH);
-  }
-  const int batch = n_rois / rois_per_image;
-  const dim3 grid(batch * lv.tile_start[kLevels], (C + kCSlice - 1) / kCSlice);
-  roi_align_bwd_bf16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      lv, boxes, levels, cot, rois_per_image, C, P, S, vec);
-  return (int)cudaGetLastError();
+  if (C & 1) return (int)cudaErrorInvalidValue;
+  void* accs[kLevels] = {g0, g1, g2, g3};
+  const int hw[2 * kLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
+  const float inv_stride[kLevels] = {s0, s1, s2, s3};
+  return launch_owner<Bf16Acc>(roi_align_bwd_bf16_kernel, accs, hw, inv_stride, boxes, levels, cot, n_rois,
+                               rois_per_image, C, P, S, stream);
 }
 
 }  // extern "C"

@@ -97,6 +97,7 @@ class ModelSpec(NamedTuple):
     # misc
     freeze_at: int
     compute_dtype: str
+    remat: bool
     backbone_name: str
     rpn_delta_bias_init: float
     resnet_depth: int
@@ -157,6 +158,7 @@ class ModelSpec(NamedTuple):
             id_map=tuple(opendet_id_map(m.ROI_HEADS.NUM_CLASSES, m.ROI_HEADS.NUM_KNOWN_CLASSES)),
             freeze_at=m.BACKBONE.FREEZE_AT,
             compute_dtype=cfg.TPU.DTYPE,
+            remat=cfg.TPU.get("REMAT", False),
             backbone_name=m.BACKBONE.NAME,
             rpn_delta_bias_init=m.RPN.get("DELTA_BIAS_INIT", 0.0),
             resnet_depth=m.RESNETS.DEPTH,
@@ -185,8 +187,8 @@ class OpensetRCNN(nn.Module):
     The port runs the R50-FPN trunk in float32 or bfloat16
     (``TPU.DTYPE``; bf16 covers the trunk, FPN, RPN head and box head, with
     parameters, losses and the other heads in f32, as the JAX module) with
-    the static RoIAlign grid; the adaptive grid and the Swin/ViT backbones
-    are later slices and raise here.
+    the static RoIAlign grid; the adaptive grid, ``TPU.REMAT`` and the
+    Swin/ViT backbones are later slices and raise here.
     """
 
     def __init__(self, spec: ModelSpec):
@@ -197,6 +199,10 @@ class OpensetRCNN(nn.Module):
             raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
         if spec.roi_sampling_ratio < 1:
             raise NotImplementedError("the adaptive RoIAlign grid (ROI_SAMPLING_RATIO -1) is not ported yet")
+        if spec.remat:
+            raise NotImplementedError("TPU.REMAT (recomputing the ResNet blocks in the backward, "
+                                      "openset_rcnn_tpu/models/resnet.py:104, 116) is not ported yet: "
+                                      "it comes with the engine loop (ROADMAP.md queue A item 5)")
         if spec.roi_align_impl not in ROI_ALIGN_IMPLS:
             raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {spec.roi_align_impl!r}")
         if spec.roi_align_bwd not in ROI_ALIGN_BWD_ACC:

@@ -305,7 +305,16 @@ def pool_features(
     (``openset_rcnn_tpu/models/detector.py:284-296``); "pallas" pools at the
     TPU kernels' window-fit level, as JAX's ``impl="pallas"``. ``bwd_impl``
     (``TPU.ROI_ALIGN_BWD``) picks the backward's accumulators:
-    ``ROI_ALIGN_BWD_ACC``."""
+    ``ROI_ALIGN_BWD_ACC``.
+
+    The backward always sends the gradient to the levels the forward read.
+    So ``bwd_impl="xla"`` under ``impl="pallas"`` gives the f32 ``pallas``
+    gradient, bitwise. JAX differs there: its ``xla`` backward
+    (``openset_rcnn_tpu/ops/roi_align.py:423-433``) assigns canonical levels
+    again (``:104``), so a box that the window-fit rule moved up a level
+    sends its gradient to a level its forward never read. The port keeps the
+    true gradient (``tests/test_torch_port_train_ops.py``
+    ``::test_xla_backward_follows_the_forward_levels``)."""
     if impl not in ROI_ALIGN_IMPLS:
         raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {impl!r}")
     if bwd_impl not in ROI_ALIGN_BWD_ACC:

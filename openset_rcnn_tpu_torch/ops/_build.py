@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep")
+KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep", "launch_floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",

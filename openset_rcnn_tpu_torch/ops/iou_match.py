@@ -15,10 +15,11 @@ batch) against G padded GT boxes:
 
 ``iou_match_plain`` forms the (B, G, R) IoU matrix in PyTorch; it is the CPU
 path and the kernel's oracle. ``iou_match`` is the wrapper: the plain version
-for CPU tensors, the CUDA kernel (``csrc/iou_match.cu``, two launches that
-never form the matrix) for CUDA tensors. There is no fallback. Both compute
-the IoU with ``ops/boxes.py::pairwise_iou``'s expression, operation for
-operation, so the kernel's outputs equal the plain version's exactly.
+for CPU tensors, the CUDA kernel (``csrc/iou_match.cu``: two launches that
+never form the matrix, and no other device operation) for CUDA tensors.
+There is no fallback. Both compute the IoU with
+``ops/boxes.py::pairwise_iou``'s expression, operation for operation, so the
+kernel's outputs equal the plain version's exactly.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from . import _build
 from .boxes import pairwise_iou
 
 MAX_GT = 1024  # csrc/iou_match.cu kMaxGt: the GT rows one block stages in shared memory
+CHUNK = 1024   # csrc/iou_match.cu kChunk: anchors a block takes per step (sizes the scratch)
 
 
 class IouMatch(NamedTuple):
@@ -58,7 +60,8 @@ _SIGNATURE = {
 
 def iou_match(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor) -> IouMatch:
     """See the module docstring. CPU tensors take the plain version; CUDA
-    tensors launch the kernel's two passes (counted as two launches)."""
+    tensors launch the kernel's two passes (counted as two launches), the
+    call's only device operations."""
     if anchors.device.type == "cpu":
         return iou_match_plain(anchors, gt_boxes, gt_valid)
     if anchors.device.type != "cuda":
@@ -76,6 +79,8 @@ def iou_match(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Ten
             raise ValueError("anchors, gt_boxes and gt_valid must be contiguous and on one device")
     if not 1 <= G <= MAX_GT:
         raise ValueError(f"the kernel takes 1 to {MAX_GT} (padded) GT rows per image, got {G}")
+    if anchors.data_ptr() % 16:
+        raise ValueError("anchors must be 16-byte aligned (one float4 per anchor)")
     dev = anchors.device
     out = IouMatch(
         torch.empty((B, R), dtype=torch.float32, device=dev),
@@ -85,13 +90,13 @@ def iou_match(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Ten
     )
     if B * R == 0:
         return out
-    # per-GT best IoU across all anchors, as f32 bits; -1 stays for invalid GT
-    gt_best = torch.full((B, G), -1.0, dtype=torch.float32, device=dev)
+    # each block's per-GT maxima; the kernels write and read them, nothing is filled
+    partial = torch.empty((B, -(-R // CHUNK), G), dtype=torch.float32, device=dev)
     lib = _build.load("iou_match", _SIGNATURE)
     with torch.cuda.device(dev):
         code = lib.iou_match(
             anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid.data_ptr(), B, G, R,
-            gt_best.data_ptr(), *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream,
+            partial.data_ptr(), *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, "iou_match", code)
     iou_match.launches += 2

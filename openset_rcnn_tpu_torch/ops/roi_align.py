@@ -28,7 +28,8 @@ RoI is pooled with exact bilinear RoIAlign from the FPN level it is given.
   RoI of every image per round, and adds each RoI's f32 window gradient to
   the bf16 accumulators in one read-add-round. ``roi_align_bwd`` and
   ``roi_align_bwd_bf16`` are the wrappers, with the CUDA kernels of
-  ``csrc/roi_align_bwd.cu`` for CUDA tensors. ``RoIAlignFunction`` joins
+  ``csrc/roi_align_bwd.cu`` for CUDA tensors (one tile-owner template for
+  both accumulator types: deterministic, every cell written once). ``RoIAlignFunction`` joins
   forward and backward into one differentiable op; its backward rounds the
   accumulators to the features' dtype, as the JAX VJP does, and gives the
   boxes no gradient.
@@ -324,18 +325,22 @@ def roi_align_bwd_plain(
     RoI r of every image (the image-interleaved order of
     ``roi_align_v2.py:531-539``; the images' cells are disjoint, so each
     cell sees its image's RoIs in order), sums each RoI's window gradient in
-    f32 and adds it to the bf16 accumulator with one rounding per RoI."""
+    f32 and adds it to the bf16 accumulator with one rounding per RoI.
+
+    f64: the f32 sums in float64, an oracle for the sum-order error of the
+    f32 versions (an f32 ``index_add_`` over tens of thousands of terms per
+    cell strays further from the exact sum than the kernel's order does)."""
     if acc_dtype == torch.bfloat16:
         return _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
-    if acc_dtype != torch.float32:
-        raise ValueError(f"accumulators are float32 or bfloat16, not {acc_dtype}")
+    if acc_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"accumulators are float32, float64 or bfloat16, not {acc_dtype}")
     B, R = boxes.shape[:2]
     C = grad.shape[-1]
     P, S = out_size, sampling_ratio
     per_image = sum(h * w for h, w in level_hw)
-    flat = torch.zeros((B * per_image, C), dtype=torch.float32, device=grad.device)
-    g = grad.reshape(B * R, P, P, C).float()
-    count = torch.full((), float(S * S), device=grad.device)  # a tensor divisor, as the forward's mean
+    flat = torch.zeros((B * per_image, C), dtype=acc_dtype, device=grad.device)
+    g = grad.reshape(B * R, P, P, C).to(acc_dtype)
+    count = torch.full((), float(S * S), dtype=acc_dtype, device=grad.device)  # a tensor divisor, as the forward's mean
     for sl, n, neighbours, ok in _chunk_geometry(boxes, levels, level_hw, strides, P, S, chunk):
         gs = (g[sl] / count)[:, :, None, :, None, :].expand(n, P, S, P, S, C).reshape(n, P * S, P * S, C)
         d = gs * ok[..., None]
@@ -431,7 +436,10 @@ def roi_align_bwd(
     sampling_ratio: int = 2,
 ) -> List[torch.Tensor]:
     """RoIAlignV2 backward (K2, f32 accumulators): per-level
-    (B, H_l, W_l, C) f32 accumulators from the (B, R, P, P, C) f32 cotangent.
+    (B, H_l, W_l, C) f32 accumulators from the (B, R, P, P, C) f32 cotangent,
+    each RoI's f32 window gradient added once, a cell's RoIs in index order
+    (so the kernel's result is deterministic). ``out_size * sampling_ratio``
+    at most 32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -442,9 +450,10 @@ def roi_align_bwd(
     P, S = out_size, sampling_ratio
     _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S)
     B, C = boxes.shape[0], grad.shape[-1]
-    accs = [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
     if boxes.numel() == 0:
-        return accs
+        return [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
+    # the kernel writes every cell, zeros included
+    accs = [torch.empty((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
     _launch_bwd("roi_align_bwd", accs, grad, boxes, levels, level_hw, strides, P, S)
     roi_align_bwd.launches += 1
     return accs

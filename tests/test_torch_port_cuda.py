@@ -28,7 +28,7 @@ from openset_rcnn_tpu_torch.ops.roi_align import (
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
-BWD_TOL = 1e-5  # RoIAlign backward, scaled by max(1, max|want|): atomics reorder the f32 sums
+BWD_TOL = 1e-5  # RoIAlign backward, scaled by max(1, max|want|): the plain version sums in another order
 # bf16 accumulators, kernel vs plain: both round each RoI's f32 window sum
 # into the cell once, RoI after RoI in index order, but they add up each
 # window sum in another order, so a window sum may differ in its last bits
@@ -230,6 +230,41 @@ def test_iou_match_kernel_matches_plain(dev, B, G, R):
         assert (got.max_iou[-1] == -1).all() and not got.rescued[-1].any()
 
 
+@pytest.mark.parametrize("B,G,R", [(16, 100, 93093), (2, 1024, 20000), (5, 1024, 20000)])
+def test_iou_match_kernel_exact_on_ties(dev, B, G, R):
+    """Integer anchors against integer GT (exact IoU ties), a duplicate GT
+    row, a zero-area GT and a last image without valid GT, at the train_bf16
+    batch and at the largest G the kernel takes: all four outputs exactly
+    the plain version's."""
+    anchors, gt, valid = iou_inputs(dev, B, G, R, seed=B + G + R)
+    got = iou_match(anchors, gt, valid)
+    torch.cuda.synchronize()
+    want = iou_match_plain(anchors, gt, valid)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    m = want.max_iou[0]
+    assert len(torch.unique(m[m > 0])) < int((m > 0).sum())  # tied IoUs
+    assert want.rescued[0].any()
+    assert (got.max_iou[-1] == -1).all() and (got.matched_idx[-1] == 0).all() and not got.rescued[-1].any()
+    assert torch.equal(got.matched_boxes[-1], gt[-1, :1].expand(R, 4))
+
+
+def test_iou_match_kernel_issues_two_device_operations(dev):
+    """A call is its two kernels and nothing else: no fill, no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    anchors, gt, valid = iou_inputs(dev, 4, 100, 93093, seed=3)
+    iou_match(anchors, gt, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iou_match(anchors, gt, valid)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 2, ops
+    assert any("iou_match_best_kernel" in n for n in ops) and any("iou_match_rescue_kernel" in n for n in ops), ops
+
+
 def test_iou_match_kernel_rejects_what_it_does_not_take(dev):
     anchors, gt, valid = iou_inputs(dev, 2, 5, 64)
     with pytest.raises(ValueError, match="float32"):
@@ -267,6 +302,37 @@ def test_roi_align_bwd_kernel_matches_plain(dev, C):
     assert roi_align_bwd.launches == before + 1
     assert all(a.dtype == torch.float32 and a.shape == (3, h, w, C) for a, (h, w) in zip(got, level_hw))
     assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered"])
+@pytest.mark.parametrize("B", [4, 16])
+def test_roi_align_bwd_kernel_is_deterministic(dev, B, kind):
+    """K2 f32 has no atomics and applies each cell's RoIs in index order:
+    two launches on the same inputs are bitwise equal, at the f32 and the
+    train_bf16 batch, on uniform RoIs and on RoIs clustered over few cells."""
+    feats, boxes, levels, cot = bwd_inputs(dev, B, 128, 256, seed=20 + B)
+    if kind == "clustered":
+        boxes = clustered_boxes(dev, B, 128, (256, 384), 4, 0.3, seed=21 + B)
+        levels = assign_levels(boxes)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    first = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+    second = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert_bwd_close(first, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES))
+
+
+# P * S = 32, the widest grid K2 f32 takes; 98 and 30: C % 4 != 0, scalar loads and stores
+@pytest.mark.parametrize("P,S,C", [(16, 2, 64), (8, 4, 98), (32, 1, 30)])
+def test_roi_align_bwd_kernel_widest_grid(dev, P, S, C):
+    feats, boxes = roi_inputs(dev, 2, 61, C, seed=P * 10 + S)
+    levels = assign_levels(boxes)
+    g = torch.Generator(device=dev).manual_seed(P + S + C)
+    cot = torch.randn(2, 61, P, P, C, generator=g, device=dev)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
+    torch.cuda.synchronize()
+    assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S))
 
 
 def test_roi_align_bwd_kernel_rejects_what_it_does_not_take(dev):
@@ -488,8 +554,11 @@ def test_roi_align_bwd_kernel_edges_and_outside(dev):
 
 
 def test_roi_align_bwd_kernel_hot_cell(dev):
-    """K2 f32: 600 RoIs of one image over one spot, so every RoI's atomics
-    land on the same few cells."""
+    """K2 f32: 600 RoIs of one image over one spot, all applied to the same
+    few cells in index order. Held to the same sums in f64 (the plain
+    version's f64 mode): over the tens of thousands of terms of such a cell
+    the f32 plain version's own order strays from them by about the whole
+    tolerance, the TPU kernel's order (a window sum per RoI) far less."""
     B, R, C = 2, 600, 256
     g = torch.Generator(device=dev).manual_seed(16)
     u = lambda *s: torch.rand(*s, generator=g, device=dev)
@@ -501,7 +570,7 @@ def test_roi_align_bwd_kernel_hot_cell(dev):
     level_hw = [(-(-256 // s), -(-384 // s)) for s in STRIDES]
     got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
     torch.cuda.synchronize()
-    want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES)
+    want = [w.float() for w in roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.float64)]
     assert_bwd_close(got, want)
     assert int((want[0][0].abs().sum(-1) > 0).sum()) <= 16
 

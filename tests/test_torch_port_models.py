@@ -106,6 +106,22 @@ def test_model_spec_from_cfg_matches_jax(setup):
     assert setup["pspec"]._asdict() == {k: jax_fields[k] for k in port_det.ModelSpec._fields}
 
 
+def test_remat_raises_until_ported():
+    """TPU.REMAT is read, as JAX reads it, and raises until the port
+    recomputes its ResNet blocks; the default (false) builds."""
+    cfg = load_cfg(port_cfg)
+    spec = port_det.ModelSpec.from_cfg(cfg)
+    assert spec.remat is False
+    assert isinstance(port_det.OpensetRCNN(spec), torch.nn.Module)
+    cfg.TPU.REMAT = True
+    spec = port_det.ModelSpec.from_cfg(cfg)
+    jcfg = load_cfg(jax_cfg)
+    jcfg.TPU.REMAT = True
+    assert spec.remat is jax_det.ModelSpec.from_cfg(jcfg, jax_det.opendet_id_map(81, 20)).remat is True
+    with pytest.raises(NotImplementedError, match="REMAT.*queue A item 5"):
+        port_det.OpensetRCNN(spec)
+
+
 def test_bridge_raises_on_missing_and_unmapped_keys(setup):
     keys = setup["model"].state_dict().keys()
     params = jax.tree.map(np.array, setup["params"])

@@ -13,6 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
 
 from openset_rcnn_tpu.config import get_default_cfg as jax_cfg
 from openset_rcnn_tpu.engine import optimizer as jax_opt
@@ -40,6 +43,7 @@ from openset_rcnn_tpu_torch.ops import matcher as port_matcher
 from openset_rcnn_tpu_torch.ops import roi_align as port_roi
 from openset_rcnn_tpu_torch.ops import sampling as port_sampling
 from openset_rcnn_tpu_torch.ops import targets as port_targets
+from openset_rcnn_tpu_torch.ops.boxes import pairwise_iou as port_pairwise_iou
 from openset_rcnn_tpu_torch.structures import GroundTruth as PortGT
 from openset_rcnn_tpu_torch.structures import Proposals as PortProposals
 
@@ -262,6 +266,42 @@ def test_iou_match_plain_matches_xla_and_pallas(rng):
     assert len(torch.unique(m[m > 0])) < int((m > 0).sum())
 
 
+@settings(max_examples=60, deadline=None)
+@given(data=st.data())
+def test_iou_match_filter_premise(data):
+    """The premise of K3's rescue pass (csrc/iou_match.cu), on the plain
+    version: with best[g] a valid GT's best IoU over all anchors and t the
+    smallest best[g] > 0, every rescued anchor has max_iou >= t, and every
+    (a, g) with IoU == best[g] > 0 has best[g] <= max_iou[a]. Integer boxes
+    (anchors included) make IoUs tie; duplicate GT rows, zero-area and
+    invalid GT among them."""
+    B = data.draw(st.integers(1, 3), label="B")
+    G = data.draw(st.integers(1, 6), label="G")
+    R = data.draw(st.integers(1, 24), label="R")
+    def boxes(shape):
+        xy = data.draw(hnp.arrays(np.int32, shape + (2,), elements=st.integers(0, 20)))
+        wh = data.draw(hnp.arrays(np.int32, shape + (2,), elements=st.integers(0, 12)))  # 0: zero area
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+    anchors, gt = boxes((R,)), boxes((B, G))
+    if G > 1 and data.draw(st.booleans(), label="duplicate"):
+        gt[:, -1] = gt[:, 0]
+    valid = data.draw(hnp.arrays(np.bool_, (B, G)), label="valid")
+    m = port_iou_match.iou_match_plain(t(anchors), t(gt), t(valid))
+    iou = port_pairwise_iou(t(gt), t(anchors)[None])  # (B, G, R)
+    best = torch.where(t(valid)[..., None], iou, torch.full_like(iou, -1.0)).amax(2)  # (B, G)
+    positive = t(valid) & (best > 0)
+    for b in range(B):
+        if positive[b].any():
+            floor = best[b][positive[b]].min()
+            assert bool((m.max_iou[b][m.rescued[b]] >= floor).all())
+        else:
+            assert not m.rescued[b].any()
+        ties = (iou[b] == best[b][:, None]) & positive[b][:, None]  # (G, R)
+        assert bool((best[b][:, None].expand_as(ties)[ties] <= m.max_iou[b][None].expand_as(ties)[ties]).all())
+        assert torch.equal(m.rescued[b], ties.any(0))
+
+
 # ---------------------------------------------- K2: RoIAlign backward
 
 
@@ -353,6 +393,73 @@ def test_roi_align_bwd_plain_matches_pallas_v2_bwd_on_clustered_boxes(rng, n_cen
     inside = ((boxes[:, None, :, :2] <= ctr[:, :, None]) & (ctr[:, :, None] <= boxes[:, None, :, 2:])).all(-1)
     same_level = levels.numpy()[:, :, None] == levels.numpy()[:, None, :]
     assert (inside & same_level).sum(-1).max() >= R // 3
+
+
+def test_roi_align_bwd_plain_f64_mode(rng):
+    """The plain version's f64 mode (the oracle of the sum-order error of
+    the f32 versions): the same sums in float64, within 1e-5 of JAX's f32
+    gather VJP and of the f32 mode; other dtypes raise."""
+    B, R, C = 2, 40, 8
+    boxes = clustered_roi_boxes(rng, B, R, 2, 0.2)
+    g = rng.randn(B, R, 7, 7, C).astype(np.float32)
+    levels = port_roi.assign_levels(t(boxes))
+    f64 = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES, acc_dtype=torch.float64)
+    f32 = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES)
+    assert all(a.dtype == torch.float64 for a in f64)
+    for a, b, w in zip(f64, f32, gather_vjp(boxes, g, C)):
+        assert_close(a, w, 1e-5)
+        assert_close(b, a, 1e-5)
+    with pytest.raises(ValueError, match="float64"):
+        port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES, acc_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("P,S", [(16, 2), (8, 4)])  # P * S = 32: the widest grid K2 f32 takes
+def test_roi_align_bwd_plain_matches_gather_vjp_at_the_widest_grid(rng, P, S):
+    """K2 f32's plain version against jax.vjp of the gather path at
+    out_size * sampling_ratio = 32 (csrc/roi_align_bwd.cu F32Acc::kMaxPS),
+    within 1e-5 * max(1, max|want|)."""
+    B, R, C = 2, 10, 4
+    boxes = roi_boxes(rng, B, R)
+    g = rng.randn(B, R, P, P, C).astype(np.float32)
+    levels = port_roi.assign_levels(t(boxes))
+    got = port_roi.roi_align_bwd_plain(t(g), t(boxes), levels, LEVEL_HW, STRIDES, P, S)
+    feats = tuple(jnp.zeros((B, h, w, C), jnp.float32) for h, w in LEVEL_HW)
+    f = lambda fs: jax.vmap(lambda fl, bb: jax_roi._multilevel_roi_align_gather(list(fl), bb, STRIDES, P, S))(
+        fs, jnp.asarray(boxes))
+    _, vjp = jax.vjp(f, feats)
+    for a, b in zip(got, vjp(jnp.asarray(g))[0]):
+        assert_close(a, np.asarray(b), 1e-5)
+
+
+def test_xla_backward_follows_the_forward_levels(rng):
+    """Under impl="pallas" the port's bwd_impl="xla" gradient is its f32
+    pallas gradient, bitwise: it goes to the levels the forward read. JAX's
+    xla backward assigns canonical levels again, so on the box
+    (20, 20, 260, 45) of a 256 x 512 pyramid, which the window-fit rule
+    moves from p2 to p3, JAX's gradient reaches p2, which the forward never
+    read, and the port's does not."""
+    level_hw = [(64, 128), (32, 64), (16, 32), (8, 16)]  # a 256 x 512 pyramid
+    B, C = 1, 8
+    boxes = np.asarray([[[20.0, 20.0, 260.0, 45.0]]], np.float32)
+    assert int(port_roi.assign_levels(t(boxes))) == 0
+    assert int(port_roi.assign_levels_window_fit(t(boxes), STRIDES)) == 1
+    fpn = {f"p{i + 2}": rng.randn(B, h, w, C).astype(np.float32) for i, (h, w) in enumerate(level_hw)}
+    g = rng.randn(B, 1, 7, 7, C).astype(np.float32)
+
+    def port_grads(bwd_impl):
+        feats = {k: t(v).permute(0, 3, 1, 2).requires_grad_(True) for k, v in fpn.items()}
+        port_heads.pool_features(feats, t(boxes), impl="pallas", bwd_impl=bwd_impl).backward(t(g))
+        return [feats[k].grad.permute(0, 2, 3, 1) for k in sorted(fpn)]
+
+    xla, pallas = port_grads("xla"), port_grads("pallas")
+    for a, b in zip(xla, pallas):
+        assert torch.equal(a, b)
+    assert not xla[0].any() and float(xla[1].abs().sum()) > 0
+    run = lambda fs: jax_heads.pool_features(fs, jnp.asarray(boxes), impl="pallas", bwd_impl="xla")
+    _, vjp = jax.vjp(run, {k: jnp.asarray(v) for k, v in fpn.items()})
+    (want,) = vjp(jnp.asarray(g))
+    assert float(np.abs(np.asarray(want["p2"])).sum()) > 0  # JAX: gradient at a level the forward never read
+    assert float(np.abs(np.asarray(want["p3"]) - xla[1].numpy()).max()) > 0
 
 
 def test_roi_align_function_gradient_is_the_plain_backward(rng):
