@@ -53,14 +53,31 @@ In order it
      batch of bench.py (20 GT boxes per image); timed steps, the stage split,
      launch counts, finite losses, frozen parameters and buffers bitwise
      unchanged, trainable ones moved, one step under torch.profiler (device
-     idle share, device time by kernel), and whether two steps from one state
-     on one batch give bitwise equal parameters (printed, not a gate: cuDNN's
-     backward algorithms need not repeat);
- 12. serve_bf16 and train_bf16: the same on the production bf16 config
-     (batch 8 serving; batch 16 training, its own IMS_PER_BATCH), each with
-     one profiled batch or step.
+     idle share, device time by kernel), and two steps from one state on
+     one batch giving bitwise equal parameters (a gate);
+ 12. serve_bf16: the same on the production bf16 config (batch 8);
+ 13. eval: the evaluation path, do_test, on the production bf16 config over
+     44 seeded synthetic records (28 landscape 800x1200, 16 portrait
+     1200x800, 2-6 GT boxes each over the VOC-COCO classes, known and
+     unknown), decoded in memory and supplied through the transform's
+     read_image: both buckets, three full landscape batches and a padded one
+     of 4, two full portrait batches; the metric dict, eval img/s of the
+     whole loop against Predictor-alone img/s, host ms per batch, the device
+     idle share of one profiled pass, one eval batch under
+     torch.cuda.set_sync_debug_mode("error"); then on the f32 config the
+     fused cascade (K4) against the exact host cascade on every image that
+     did not overflow, with equal VOC metric dicts, do_test with
+     TPU.EVAL_FUSED false, and eval_type="proposals" over two batches;
+ 14. train_bf16: Trainer on the production config at batch 16 (its own
+     IMS_PER_BATCH), with one profiled step.
 Each path is driven with every launch count at 0 just before it and read
-just after. Then it prints one JSON line of kernel figures and, last,
+just after. The entry points set their own numerics (no TF32, no bf16
+reduced-precision reductions; deterministic cuDNN in the train step): the
+script leaves PyTorch's process-wide defaults alone, prints the flags a
+stage's mark callback observes inside a serve batch and a train step, and
+checks that two train steps from one state on one batch give bitwise equal
+parameters (train and train_bf16). Then it prints one JSON line of kernel
+figures and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -71,6 +88,14 @@ times only K3 and K2 f32 at the shapes of phases 5 and 6 (event and device
 time, no gates), with the openset_rcnn_tpu_torch package of ROOT (default:
 this checkout), so that two versions of the kernels are timed by one script
 in one call: run it on a checkout of each.
+
+    python3 chip_smoke.py --step-timings [ROOT]
+
+times only the train (f32, batch 4) and train_bf16 (batch 16) steps with
+ROOT's package, with TF32 and bf16 reduced-precision reductions turned off
+process-wide as this script did before the entry points set them, and
+prints the device time by kernel of one profiled f32 step and whether two
+steps repeat bitwise (no gates): run it on a checkout of each version.
 """
 import json
 import math
@@ -116,6 +141,14 @@ REF_TOL = 1e-3                    # GPU vs CPU in f32, scaled by max(1, |want|)
 REF_TOL_BF16, REF_GRAD_TOL_BF16 = 2e-2, 0.25
 # true (h, w) of the serve batch's images inside the bucket
 IMAGE_HW = [[832, 1344], [800, 1333], [832, 1110], [600, 1344], [750, 1000], [832, 1344], [512, 768], [700, 1200]]
+# the flags the entry points set inside (openset_rcnn_tpu_torch/device.py::entry_numerics)
+SERVE_FLAGS = {"cudnn.allow_tf32": False, "matmul.allow_tf32": False,
+               "matmul.allow_bf16_reduced_precision_reduction": False}
+TRAIN_FLAGS = {**SERVE_FLAGS, "cudnn.deterministic": True, "cudnn.benchmark": False}
+EVAL_DATASET = "chip_smoke_eval"
+EVAL_LANDSCAPE, EVAL_PORTRAIT = 28, 16  # records of 800x1200 and of 1200x800
+EVAL_HW = (800, 1200)
+EVAL_TOL = 1e-5                   # fused vs host cascade: boxes and scores, scaled by max(1, max|want|)
 COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",
                "rpn/num_proposals", "roi_head/num_fg_samples", "roi_head/num_bg_samples")
 
@@ -451,6 +484,7 @@ def phase_serve(torch, dev, cfg, label):
         check(torch.equal(getattr(a, name), getattr(b, name)), f"cascade {name}: kernel NMS != plain NMS")
 
     stages = stage_split(torch, lambda mark: predictor(images, image_hw, mark=mark))
+    flags = observed_flags(lambda mark: predictor(images, image_hw, mark=mark), SERVE_FLAGS, label)
     profile = profile_step(torch, lambda: predictor(images, image_hw))
     print(f"{label}: {ms:.2f} ms/batch ({BATCH * 1e3 / ms:.2f} img/s) over {SERVE_BATCHES} batches "
           f"(per batch {[round(x, 2) for x in batch_ms]}; host clock {wall:.2f} ms/batch); "
@@ -459,8 +493,25 @@ def phase_serve(torch, dev, cfg, label):
     print(f"{label} stages (ms): " + json.dumps({k: round(x, 3) for k, x in stages.items()}), flush=True)
     print(f"{label}: cascade with kernel NMS == cascade with plain NMS; launches " + json.dumps(launches), flush=True)
     print(f"{label} profile: " + json.dumps(profile), flush=True)
+    print(f"{label}: numerics flags inside a serve batch (the backbone's mark) {json.dumps(flags['inside'])}; "
+          f"the caller's, before and after {json.dumps(flags['outside'])}", flush=True)
     return launches, dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms, stages_ms=stages, peak_gb=peak_gb,
-                          device_idle_share=profile["idle_share"])
+                          device_idle_share=profile["idle_share"], flags_inside=flags["inside"])
+
+
+def observed_flags(run, want, label):
+    """The numerics flags as a mark callback sees them inside ``run(mark)``
+    (at the backbone's mark) and as the caller sees them before and after:
+    ``want`` inside, the caller's own flags unchanged outside."""
+    from openset_rcnn_tpu_torch.device import numerics_flags
+
+    before, seen = numerics_flags(), {}
+    run(lambda stage: seen.setdefault(stage, numerics_flags()))
+    inside, after = seen["backbone"], numerics_flags()
+    check(all(inside[k] == v for k, v in want.items()), f"{label}: flags inside {inside}, expected {want}")
+    check(all(flags == inside for flags in seen.values()), f"{label}: flags changed between stages: {seen}")
+    check(after == before, f"{label}: the caller's flags {before} came back as {after}")
+    return dict(inside=inside, outside=before)
 
 
 def stage_split(torch, run):
@@ -833,6 +884,7 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
 
     stages = stage_split(torch, lambda mark: trainer.step(batch, mark=mark))
     stages["forward"] = sum(x for s, x in stages.items() if s not in ("backward", "optimizer"))
+    flags = observed_flags(lambda mark: trainer.step(batch, mark=mark), TRAIN_FLAGS, label)
     last = history[-1]
     profile = profile_step(torch, lambda: trainer.step(batch))
 
@@ -851,9 +903,12 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     for n in differ:
         by_module[n.split(".")[0]] = by_module.get(n.split(".")[0], 0) + 1
     print(f"{label}: two steps from one state on one batch: " + (
-        "parameters bitwise equal" if not differ else
+        f"all {n_params} parameter tensors bitwise equal" if not differ else
         f"{len(differ)} of {n_params} parameter tensors differ (largest difference {worst:.3e}; by module "
-        f"{json.dumps(by_module)}; first {differ[:3]})") + " (a finding, not a gate)", flush=True)
+        f"{json.dumps(by_module)}; first {differ[:3]})"), flush=True)
+    check(not differ, f"{label}: two steps from one state on one batch differ in {len(differ)} parameter tensors")
+    print(f"{label}: numerics flags inside a train step (the backbone's mark) {json.dumps(flags['inside'])}; "
+          f"the caller's, before and after {json.dumps(flags['outside'])}", flush=True)
     print(f"{label}: {ms:.2f} ms/step ({batch_size * 1e3 / ms:.2f} img/s) at batch {batch_size} over {TRAIN_STEPS} "
           f"steps (per step {[round(x, 2) for x in step_ms]}; host clock {wall:.2f} ms/step); peak memory "
           f"{peak_gb:.2f} GB; {len(frozen)} frozen parameters and {len(buffers)} buffers unchanged, "
@@ -864,7 +919,7 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     print(f"{label} profile: " + json.dumps(profile), flush=True)
     return launches, dict(ms_per_step=ms, img_per_s=batch_size * 1e3 / ms, batch=batch_size, stages_ms=stages,
                           peak_gb=peak_gb, device_idle_share=profile["idle_share"],
-                          repeat_bitwise=not differ, repeat_tensors_differing=len(differ))
+                          repeat_bitwise=not differ, flags_inside=flags["inside"])
 
 
 def repeat_step(torch, trainer, batch):
@@ -1049,6 +1104,221 @@ def profile_step(torch, step):
                 top_kernels_ms=[[key[:60], round(ms, 3)] for key, ms in kernels[:8]])
 
 
+def eval_records(np, hw=EVAL_HW):
+    """The eval phase's records and their decoded pixels: 28 landscape
+    800x1200 and 16 portrait 1200x800 images (in a seeded order), colored
+    rectangles on a noisy background, with 2-6 GT boxes over the VOC-COCO
+    classes (the first known, the second unknown, the rest either). The test
+    transform keeps these sizes (resize_shortest_edge(800, 1200, 800, 1333)
+    is (800, 1200)), so no image is resized."""
+    rng = np.random.RandomState(11)
+    shapes = [hw] * EVAL_LANDSCAPE + [hw[::-1]] * EVAL_PORTRAIT
+    records, pixels = [], {}
+    for i in rng.permutation(len(shapes)):
+        h, w = shapes[i]
+        img = rng.randint(20, 60, (h, w, 3)).astype(np.uint8)
+        annos = []
+        for j in range(rng.randint(2, 7)):
+            bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y1:y1 + bh, x1:x1 + bw] = rng.randint(60, 255, 3)
+            cls = rng.randint(0, 20) if j == 0 else rng.randint(20, 80) if j == 1 else rng.randint(0, 80)
+            annos.append({"bbox": [float(x1), float(y1), float(x1 + bw), float(y1 + bh)],
+                          "category_id": int(cls), "difficult": 0})
+        name = f"memory://{int(i)}"
+        pixels[name] = img
+        records.append({"file_name": name, "image_id": int(i), "height": h, "width": w, "annotations": annos})
+    return records, pixels
+
+
+def register_eval(name, records):
+    from openset_rcnn_tpu_torch.data import DatasetCatalog, MetadataCatalog, VOC_COCO_CATEGORIES
+
+    DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: records)
+    MetadataCatalog.get(name).update(evaluator_type="voc_records", thing_classes=VOC_COCO_CATEGORIES)
+
+
+def in_memory_transform(cfg, pixels):
+    """The test transform of ``cfg`` reading decoded pixels from memory (the
+    card's machine has no image decoder)."""
+    from openset_rcnn_tpu_torch.engine.train_loop import build_test_transform
+
+    transform = build_test_transform(cfg)
+    transform.read_image = lambda record: pixels[record["file_name"]]
+    return transform
+
+
+def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
+    """The evaluation path (see the module docstring, phase 13)."""
+    import numpy as np
+    from openset_rcnn_tpu_torch.data import EvalLoader, device_prefetch
+    from openset_rcnn_tpu_torch.engine.train_loop import do_test, get_evaluator
+    from openset_rcnn_tpu_torch.evaluation import evalcore_binding
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.evaluation.postprocess import finalize_serve_image, postprocess_image
+    from openset_rcnn_tpu_torch.evaluation.testing import RAW_FIELDS, SERVE_FIELDS, inference_on_dataset, to_host
+
+    voc_keys = ("mAP", "WI", "AOSE", "AP@K", "P@K", "R@K", "AP@U", "P@U", "R@U")
+    t0 = time.perf_counter()
+    records, pixels = eval_records(np, EVAL_HW)
+    register_eval(EVAL_DATASET, records)
+    transform = in_memory_transform(cfg, pixels)
+    batch_size = cfg.TPU.EVAL_BATCH_SIZE
+    batches = list(EvalLoader(records, transform, batch_size))
+    shapes = [(tuple(b.images.shape), len(m.image_ids)) for b, m in batches]
+    land, port = (batch_size, *cfg.TPU.TEST_BUCKET, 3), (batch_size, *cfg.TPU.TEST_BUCKET[::-1], 3)
+    check(sorted(shapes) == sorted([(land, batch_size)] * 3 + [(land, 4), (port, batch_size), (port, batch_size)]),
+          f"eval: batches {shapes}, expected three full landscape, a padded one of 4 and two full portrait")
+    check(all(m.input_hw == m.original_hw for _, m in batches), "eval: an image was resized")
+    print(f"eval: {len(records)} records made and batched in {time.perf_counter() - t0:.1f} s; batches "
+          f"(shape, real images) {shapes}; native evalcore built and loaded: {evalcore_binding.available()} "
+          f"({evalcore_binding.library_path()})", flush=True)
+
+    # the main path, through the user's entry point: counts at 0 just before, read just after
+    reset_launches()
+    metrics = do_test(cfg, datasets=[EVAL_DATASET], transform=transform)[EVAL_DATASET]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_batches = len(batches)
+    want = {name: 0 for name in launches}
+    want.update(roi_align_fwd=n_batches, nms_keep=2 * n_batches)
+    check(launches == want, f"eval launches {launches}, expected {want}")
+    check(set(metrics) == set(voc_keys) and all(math.isfinite(v) for v in metrics.values()),
+          f"eval (do_test, fused): metrics {metrics}, expected finite values of {voc_keys}")
+    print(f"eval: do_test on {EVAL_DATASET} ({cfg.TPU.DTYPE}, fused cascade), {len(records)} images: "
+          + json.dumps(metrics) + "; launches " + json.dumps(launches), flush=True)
+
+    # the loop timed: one warm pass, then one timed pass and one profiled pass
+    predictor = Predictor(cfg, seed=0)
+
+    def run(timings=None):
+        evaluator = get_evaluator(cfg, EVAL_DATASET)
+        return inference_on_dataset(predictor, EvalLoader(records, transform, batch_size), evaluator,
+                                    timings=timings)
+
+    check(run() == metrics, "eval: a second Predictor gives other metrics than do_test's")
+    timings = {}
+    torch.cuda.synchronize()
+    run(timings)
+    eval_img_per_s = timings["images"] / timings["seconds"]
+    profile = profile_step(torch, run)
+
+    # Predictor alone on the loader's first landscape batch, on the device, in this run
+    images, image_hw = batches[0][0].images.to(dev), batches[0][0].image_hw.to(dev)
+    alone_ms = time_ms(torch, lambda: predictor(images, image_hw), SERVE_BATCHES)
+    # no hidden host sync inside a batch: the forward, the cascade and the copies' enqueue
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        host = to_host(predictor(images, image_hw), SERVE_FIELDS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host.numpy()
+    consume = timings["consume_ms"]
+    print(f"eval: {eval_img_per_s:.2f} img/s over the whole loop ({timings['images']} images in "
+          f"{timings['seconds'] * 1e3:.1f} ms), Predictor alone {BATCH * 1e3 / alone_ms:.2f} img/s on one batch "
+          f"({alone_ms:.2f} ms/batch; serve_bf16 phase {serve_img_per_s:.2f} img/s); host ms per batch in consume "
+          f"{[round(x, 2) for x in consume]} (waiting for the copies {[round(x, 2) for x in timings['wait_ms']]}); "
+          f"one batch under set_sync_debug_mode('error') made no host sync", flush=True)
+    # the profiler slows the host side of the loop (the loader thread's copies, each launch), so its idle
+    # share overstates the idle time; its device busy time against the unprofiled loop's span does not
+    idle_unprofiled = max(0.0, 1.0 - profile["device_busy_ms"] / (timings["seconds"] * 1e3))
+    print(f"eval: device idle share {profile['idle_share']:.3f} in the profiled pass, {idle_unprofiled:.3f} of the "
+          f"timed pass (the profiled pass's device busy time over the timed pass's span)", flush=True)
+    print("eval profile: " + json.dumps(profile), flush=True)
+
+    # f32: fused cascade (K4) against the exact host cascade on the same raw outputs
+    transform32 = in_memory_transform(cfg32, pixels)
+    predictor32 = Predictor(cfg32, seed=0)
+    post_cfg = predictor32.post_cfg
+    evaluators = {k: get_evaluator(cfg32, EVAL_DATASET) for k in ("fused", "host", "host_all")}
+    compared = overflowed = n_dets = 0
+    worst = 0.0
+    for batch, meta in device_prefetch(EvalLoader(records, transform32, batch_size), dev):
+        raw = predictor32.raw(batch.images, batch.image_hw)
+        fused = to_host(predictor32.cascade(raw), SERVE_FIELDS).numpy()
+        raw = to_host(raw, RAW_FIELDS).numpy()
+        for i, image_id in enumerate(meta.image_ids):
+            args = (meta.input_hw[i], meta.original_hw[i], post_cfg)
+            host = postprocess_image(*(raw[k][i] for k in RAW_FIELDS), *args)
+            evaluators["host_all"].process(image_id, host.boxes, host.scores, host.classes)
+            if fused["known_overflow"][i] > 0:
+                overflowed += 1
+                continue
+            fin = finalize_serve_image(*(fused[k][i] for k in ("boxes", "scores", "classes", "valid")), *args)
+            check(len(fin.classes) == len(host.classes), f"eval f32 image {image_id}: fused {len(fin.classes)} "
+                  f"detections, host {len(host.classes)}")
+            a = np.concatenate([fin.classes[:, None], fin.scores[:, None], fin.boxes], 1).astype(np.float64)
+            b = np.concatenate([host.classes[:, None], host.scores[:, None], host.boxes], 1).astype(np.float64)
+            a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+            check(np.array_equal(a[:, 0], b[:, 0]), f"eval f32 image {image_id}: classes differ")
+            if len(b):
+                err = float(np.abs(a[:, 1:] - b[:, 1:]).max()) / max(1.0, float(np.abs(b[:, 1:]).max()))
+                check(err <= EVAL_TOL, f"eval f32 image {image_id}: fused vs host scaled error {err:.3e}")
+                worst = max(worst, err)
+            evaluators["fused"].process(image_id, fin.boxes, fin.scores, fin.classes)
+            evaluators["host"].process(image_id, host.boxes, host.scores, host.classes)
+            compared += 1
+            n_dets += len(b)
+    check(compared > 0, "eval f32: every image overflowed the known-candidate slot")
+    fused_metrics, host_metrics = evaluators["fused"].evaluate(), evaluators["host"].evaluate()
+    check(fused_metrics == host_metrics, f"eval f32: VOC metrics fused {fused_metrics} != host {host_metrics}")
+    host_all = evaluators["host_all"].evaluate()
+    cfg32_host = cfg32.clone()
+    cfg32_host.TPU.EVAL_FUSED = False
+    via_do_test = do_test(cfg32_host, datasets=[EVAL_DATASET], transform=transform32)[EVAL_DATASET]
+    check(via_do_test == host_all, f"eval f32: do_test with EVAL_FUSED false {via_do_test} != the host cascade's "
+          f"{host_all}")
+    print(f"eval f32: fused cascade (K4) == host cascade on {compared} images without overflow ({n_dets} "
+          f"detections, worst scaled error {worst:.3e}, limit {EVAL_TOL}; {overflowed} images overflowed and were "
+          f"left out), equal VOC metrics " + json.dumps(fused_metrics)
+          + "; do_test with TPU.EVAL_FUSED false == the host cascade over all images " + json.dumps(via_do_test),
+          flush=True)
+
+    # proposals over two batches
+    register_eval(EVAL_DATASET + "_proposals", [r for r in records if r["width"] > r["height"]][:2 * batch_size])
+    ar = do_test(cfg32, datasets=[EVAL_DATASET + "_proposals"], eval_type="proposals",
+                 transform=transform32)[EVAL_DATASET + "_proposals"]
+    check({"AR@100", "AR@1000"} <= set(ar) and all(math.isfinite(ar[k]) for k in ("AR@100", "AR@1000")),
+          f"eval proposals: {ar}")
+    print("eval proposals (f32, two batches): " + json.dumps(ar), flush=True)
+    return launches, dict(metrics=metrics, img_per_s=eval_img_per_s, predictor_alone_img_per_s=BATCH * 1e3 / alone_ms,
+                          consume_ms=consume, wait_ms=timings["wait_ms"], device_idle_share=profile["idle_share"],
+                          device_idle_share_unprofiled=idle_unprofiled,
+                          fused_vs_host=dict(images=compared, overflowed=overflowed, detections=n_dets,
+                                             worst_scaled_err=worst, metrics=fused_metrics),
+                          proposals=ar)
+
+
+def step_timings(torch, dev):
+    """``--step-timings``: ms/step of train (f32, batch 4) and train_bf16
+    (batch 16), one profiled f32 step, and whether two steps repeat bitwise."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    out = {}
+    for label, cfg, batch_size, calibrate in (("train", load_cfg(), TRAIN_BATCH, False),
+                                              ("train_bf16", load_cfg(CONFIG_BF16), TRAIN_BATCH_BF16, True)):
+        trainer = Trainer(cfg, seed=0)
+        host = bench_batch(torch, batch_size, cfg.TPU.MAX_GT_PER_IMAGE)
+        batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                           GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+        if calibrate:
+            calibrate_frozen_bn(torch, trainer.model, batch.images, batch.image_hw)
+        for _ in range(TRAIN_WARMUP):
+            trainer.step(batch)
+        ms = time_ms(torch, lambda: trainer.step(batch), TRAIN_STEPS)
+        profile = profile_step(torch, lambda: trainer.step(batch))
+        n_params, differ, _ = repeat_step(torch, trainer, batch)
+        out[label] = dict(ms_per_step=ms, batch=batch_size, repeat_bitwise=not differ,
+                          tensors_differing=len(differ), device_idle_share=profile["idle_share"],
+                          top_kernels_ms=profile["top_kernels_ms"])
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_kernel(line):
     """The kernel named in a line of ptxas's report (its mangled name carries
     each identifier behind its length)."""
@@ -1057,8 +1327,8 @@ def ptxas_kernel(line):
 
 
 def main():
-    only_timings = sys.argv[1:2] == ["--timings"]
-    root = Path(sys.argv[2]).resolve() if only_timings and len(sys.argv) > 2 else ROOT
+    mode = sys.argv[1] if sys.argv[1:2] in (["--timings"], ["--step-timings"]) else None
+    root = Path(sys.argv[2]).resolve() if mode and len(sys.argv) > 2 else ROOT
     if not (root / "openset_rcnn_tpu_torch" / "csrc").is_dir() or not CONFIG.exists():
         print("chip_smoke: run from the root of a checkout of the repository", file=sys.stderr)
         return 2
@@ -1073,12 +1343,21 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    print(f"torch {torch.__version__} CUDA {torch.version.cuda}; f32 convs and matmuls without TF32, bf16 "
-          "matmuls without reduced-precision reductions", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # bf16 GEMMs sum in f32 throughout, as XLA's bf16 dots do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    import importlib.util
+    import shutil
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL", "triton")}
+    print(f"torch {torch.__version__} CUDA {torch.version.cuda}; python {sys.version.split()[0]}; importable "
+          f"{json.dumps(have)}; g++ {shutil.which('g++')}", flush=True)
+    if mode == "--step-timings":
+        # as this script ran the parent's entry points: TF32 and bf16 reduced-precision reductions off process-wide
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    else:
+        from openset_rcnn_tpu_torch.device import numerics_flags
+
+        print("process-wide numerics flags, left at PyTorch's defaults: " + json.dumps(numerics_flags()), flush=True)
     dev = torch.device("cuda", 0)
 
     seconds, logs = _build.build()
@@ -1091,8 +1370,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name} {kernel}: {line.strip()}")
 
-    if only_timings:
+    if mode == "--timings":
         print(f"timings of the kernels of {root}: " + json.dumps(timings(torch, dev)))
+        return 0
+    if mode == "--step-timings":
+        print(f"step timings of {root}: " + json.dumps(step_timings(torch, dev)))
         return 0
     kernels = [phase_roi_align(torch, dev), phase_nms(torch, dev), phase_iou_match(torch, dev),
                phase_roi_align_bwd(torch, dev)]
@@ -1112,12 +1394,14 @@ def main():
     paths["serve"], results["serve"] = phase_serve(torch, dev, load_cfg(), "serve")
     paths["train"], results["train"] = phase_train(torch, dev, load_cfg(), "train", TRAIN_BATCH)
     paths["serve_bf16"], results["serve_bf16"] = phase_serve(torch, dev, load_cfg(CONFIG_BF16), "serve_bf16")
+    paths["eval"], results["eval"] = phase_eval(torch, dev, load_cfg(CONFIG_BF16), load_cfg(),
+                                                results["serve_bf16"]["img_per_s"])
     paths["train_bf16"], results["train_bf16"] = phase_train(torch, dev, load_cfg(CONFIG_BF16), "train_bf16",
                                                              TRAIN_BATCH_BF16, calibrate=True)
-    # launches: from the path that brought the kernel (serve: K1, K4; train:
-    # K2 f32, K3; train_bf16: K2 bf16; K5, which no path of the model runs:
-    # its own call)
-    home = {"roi_align_fwd": "serve", "nms_keep": "serve", "roi_align_bwd": "train", "iou_match": "train",
+    # launches: from the path of this slice that runs the kernel (eval: K1,
+    # K4; train: K2 f32, K3; train_bf16: K2 bf16; K5, which no path of the
+    # model runs: its own call)
+    home = {"roi_align_fwd": "eval", "nms_keep": "eval", "roi_align_bwd": "train", "iou_match": "train",
             "roi_align_bwd_bf16": "train_bf16", "roi_align_window": "window"}
     for k in kernels:
         k["launches"] = paths[home[k["name"]]][k["name"]]

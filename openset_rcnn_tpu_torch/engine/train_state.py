@@ -7,6 +7,12 @@ frozen stages, the optimizer, anchors per image bucket, and ``step(batch)``.
 Randomness: the samplers of step k draw from a generator seeded from
 (seed, k), so a run resumed at step k draws what the uninterrupted run drew
 (the role of ``jax.random.fold_in(rng, step)`` at ``train_state.py:73``).
+
+Numerics: ``Trainer.step`` runs its forward, backward and update under
+``device.entry_numerics(deterministic=True)``: f32 without TF32, bf16
+matmuls summing in f32, and cuDNN's deterministic algorithms, so two steps
+from one state on one batch give bitwise equal parameters, as the JAX
+package's training does.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import entry_numerics, resolve_device
 from ..models.detector import Mark, ModelSpec, OpensetRCNN, build_model, compute_anchors, training_losses_and_stats
 from ..structures import GroundTruth, ImageBatch
 from .optimizer import build_optimizer, clip_gradients
@@ -130,4 +136,5 @@ class Trainer:
         )
         anchors, level_sizes = self.anchors(tuple(batch.images.shape[1:3]))
         generator = None if uniforms is not None else step_generator(self.seed, self.state.step, dev)
-        return self._train_step(self.state, batch, anchors, level_sizes, generator, uniforms, mark)
+        with entry_numerics(deterministic=True):
+            return self._train_step(self.state, batch, anchors, level_sizes, generator, uniforms, mark)

@@ -1,11 +1,12 @@
 """OpensetRCNN: the two-stage open-set detector, training losses and
 inference forward.
 
-Port of ``openset_rcnn_tpu/models/detector.py:48-499``: ``ModelSpec.from_cfg``
-and ``opendet_id_map``, the module holding every parameter, anchors per image
-bucket, ``training_losses_and_stats`` (the six losses and ten training
-scalars of one batch) and ``inference_forward`` (preprocess -> backbone +
-FPN -> CF-RPN -> proposals -> RoIAlign -> heads -> ``RawDetections``).
+Port of ``openset_rcnn_tpu/models/detector.py:48-499``: ``ModelSpec.from_cfg``,
+the class-id maps (``opendet_id_map``, ``known_ids_id_map``), the module
+holding every parameter, anchors per image bucket,
+``training_losses_and_stats`` (the six losses and ten training scalars of
+one batch) and ``inference_forward`` (preprocess -> backbone + FPN -> CF-RPN
+-> proposals -> RoIAlign -> heads -> ``RawDetections``).
 
 Layout: images enter as (B, H, W, 3) raw BGR pixels, the JAX layout; the
 trunk runs NCHW in ``channels_last`` memory, so on the GPU the FPN maps are
@@ -105,16 +106,16 @@ class ModelSpec(NamedTuple):
     roi_align_bwd: str
 
     @staticmethod
-    def from_cfg(cfg) -> "ModelSpec":
-        """The spec of ``cfg``. Only the OpenDet protocol's class-id map is
-        ported (``OPENDET_BENCHMARK true``); GraspNet's map needs the dataset
-        catalog, which comes with the data slice of the port."""
+    def from_cfg(cfg, id_map: Optional[Sequence[int]] = None) -> "ModelSpec":
+        """The spec of ``cfg``. ``id_map`` maps each contiguous class id and
+        the background to its known index or -1; when None it is the map of
+        ``cfg`` (``engine.train_loop.build_id_map``: the OpenDet map, or with
+        ``OPENDET_BENCHMARK false`` the known ids of the dataset catalog)."""
         m = cfg.MODEL
-        if not cfg.OPENDET_BENCHMARK:
-            raise NotImplementedError(
-                "OPENDET_BENCHMARK false needs the known-class id map of the dataset catalog "
-                "(openset_rcnn_tpu/engine/train_loop.py:66-75), which the port's data slice brings"
-            )
+        if id_map is None:
+            from ..engine.train_loop import build_id_map
+
+            id_map = build_id_map(cfg)
         return ModelSpec(
             num_classes=m.ROI_HEADS.NUM_CLASSES,
             num_known_classes=m.ROI_HEADS.NUM_KNOWN_CLASSES,
@@ -155,7 +156,7 @@ class ModelSpec(NamedTuple):
             pln_beta=m.PLN.BETA,
             pln_iou_threshold=m.PLN.IOU_THRESHOLD,
             pln_loss_weight=m.PLN.LOSS_WEIGHT,
-            id_map=tuple(opendet_id_map(m.ROI_HEADS.NUM_CLASSES, m.ROI_HEADS.NUM_KNOWN_CLASSES)),
+            id_map=tuple(id_map),
             freeze_at=m.BACKBONE.FREEZE_AT,
             compute_dtype=cfg.TPU.DTYPE,
             remat=cfg.TPU.get("REMAT", False),
@@ -175,6 +176,17 @@ def opendet_id_map(num_classes: int, num_known: int) -> List[int]:
     for i in range(num_known):
         out[i] = i
     out[num_classes] = num_known
+    return out
+
+
+def known_ids_id_map(num_classes: int, known_contiguous_ids: Sequence[int]) -> List[int]:
+    """GraspNet-style mapping (``openset_rcnn_tpu/models/detector.py:183-191``):
+    sorted known contiguous ids map to 0..K-1, background to K, every other
+    id to -1."""
+    out = [-1] * (num_classes + 1)
+    for i, v in enumerate(sorted(known_contiguous_ids)):
+        out[v] = i
+    out[num_classes] = len(known_contiguous_ids)
     return out
 
 

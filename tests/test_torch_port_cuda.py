@@ -585,3 +585,77 @@ def test_roi_align_bwd_kernel_generic_grid(dev, P, S):
     got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, S)
     torch.cuda.synchronize()
     assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, S))
+
+
+# ------------------------------------------------------------ entry points on the card
+
+
+def small_trainer_batch(dev, cfg, B=2, H=64, W=96, G=8):
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    g = torch.Generator().manual_seed(9)
+    u = lambda *s: torch.rand(*s, generator=g)
+    xy, wh = u(B, G, 2) * 50.0, 10.0 + u(B, G, 2) * 30.0
+    classes = torch.randint(0, 81, (B, G), generator=g, dtype=torch.int32)
+    classes[:, 0] = 3  # a known class in every image
+    images = torch.tensor(cfg.MODEL.PIXEL_MEAN) + (u(B, H, W, 3) * 8.0 - 4.0)
+    return ImageBatch(images.to(dev), torch.tensor([[H, W]] * B, dtype=torch.float32, device=dev),
+                      GroundTruth(torch.cat([xy, xy + wh], -1).to(dev), classes.to(dev), torch.ones(B, G, dtype=torch.bool, device=dev)))
+
+
+@pytest.mark.parametrize("config", ["openset_rcnn_R50_FPN_128k.yaml", "openset_rcnn_R50_FPN_128k_tpu.yaml"])
+def test_train_step_repeats_bitwise_on_the_card(dev, config):
+    """Two Trainer.steps from one state on one batch give bitwise equal
+    parameters: the step runs cuDNN's deterministic algorithms."""
+    import copy
+    from pathlib import Path
+
+    from openset_rcnn_tpu_torch.config import get_default_cfg
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs/VOC-COCO" / config))
+    cfg.MODEL.RPN.DELTA_BIAS_INIT = 1.0
+    cfg.SOLVER.WARMUP_ITERS = 0
+    trainer = Trainer(cfg, seed=0)
+    batch = small_trainer_batch(dev, cfg)
+    trainer.step(batch)
+    state = trainer.state
+    params = {k: v.clone() for k, v in state.model.state_dict().items()}
+    momentum = copy.deepcopy(state.optimizer.state_dict())
+    trainer.step(batch)
+    first = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state.model.load_state_dict(params)
+    state.optimizer.load_state_dict(momentum)
+    state.step -= 1
+    trainer.step(batch)
+    differ = [n for n, p in state.model.named_parameters() if not torch.equal(p, first[n])]
+    assert not differ, differ
+
+
+def test_device_prefetch_and_to_host_on_the_card(dev):
+    """Batches staged on the copy stream arrive intact on the consumer's
+    stream; ``to_host``'s pinned copies equal ``.cpu()`` once its event has
+    fired."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from openset_rcnn_tpu_torch.data.loader import device_prefetch
+    from openset_rcnn_tpu_torch.evaluation.testing import to_host
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    g = torch.Generator().manual_seed(10)
+    host = [ImageBatch(torch.randint(0, 256, (4, 320, 480, 3), dtype=torch.uint8, generator=g),
+                       torch.rand(4, 2, generator=g),
+                       GroundTruth(torch.rand(4, 8, 4, generator=g), torch.randint(0, 9, (4, 8), generator=g),
+                                   torch.rand(4, 8, generator=g) > 0.5)) for _ in range(5)]
+    got = list(device_prefetch(((b, i) for i, b in enumerate(host)), dev))
+    assert [m for _, m in got] == list(range(5))
+    for (b, _), want in zip(got, host):
+        assert b.images.is_cuda and torch.equal(b.images.cpu(), want.images)
+        assert torch.equal(b.gt.valid.cpu(), want.gt.valid)
+        out = torch.nn.functional.avg_pool2d(b.images.permute(0, 3, 1, 2).float(), 4)
+        copy = to_host(SimpleNamespace(x=out, n=out.sum((1, 2, 3))), ("x", "n")).numpy()
+        np.testing.assert_array_equal(copy["x"], out.cpu().numpy())
+        np.testing.assert_array_equal(copy["n"], out.sum((1, 2, 3)).cpu().numpy())

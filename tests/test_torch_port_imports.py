@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX nor the JAX package, nor ``cv2`` or
+``PIL`` (the GPU machine has neither): the transforms import them inside the
+functions that decode and resize."""
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +16,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "flax" or m.startswith("flax.")
-             or m == "openset_rcnn_tpu" or m.startswith("openset_rcnn_tpu."))
+             or m == "openset_rcnn_tpu" or m.startswith("openset_rcnn_tpu.")
+             or m == "cv2" or m.startswith("cv2.") or m == "PIL" or m.startswith("PIL."))
 print(len(names))
 print(",".join(bad))
 """
@@ -27,5 +30,5 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 33, out.stdout
+    assert int(n_modules) >= 50, out.stdout
     assert bad == "", f"the port loaded {bad}"

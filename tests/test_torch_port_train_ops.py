@@ -616,9 +616,12 @@ def test_spec_id_map_matches_jax_and_unported_options_raise():
     cfg.TPU.ROI_SAMPLING_RATIO = -1
     with pytest.raises(NotImplementedError, match="adaptive"):
         port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg))
+    # ported: OPENDET_BENCHMARK false takes a known-id map (GraspNet's, from
+    # the catalog, is held against JAX in test_torch_port_eval_path)
     cfg.OPENDET_BENCHMARK = False
-    with pytest.raises(NotImplementedError, match="data slice"):
-        port_det.ModelSpec.from_cfg(cfg)
+    known = jax_det.known_ids_id_map(81, [3, 7, 11])
+    assert port_det.ModelSpec.from_cfg(cfg, id_map=known).id_map == tuple(known)
+    assert port_det.known_ids_id_map(81, [3, 7, 11]) == list(known)
 
 
 # ------------------------------------------------------------ optimizer
