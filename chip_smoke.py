@@ -30,6 +30,13 @@ In order it
      1e-5 * max(1, max|want|) (the plain version sums in another order),
      two launches bitwise equal; prints both versions' distance from the
      same sums in f64; times each;
+  6a. roi_align adaptive (K1's adaptive mode, sampling_ratio -1, the
+     *_parity.yaml configs' grid): against its plain version at the serving
+     shapes and at B=16, R=512, on boxes that take 1 sample a bin axis and
+     the clip at 8, within atol 2e-5 + rtol 1e-5 (bitwise in practice),
+     timed beside the static grid's K1 on the same boxes;
+  6b. roi_align_bwd adaptive (K2 f32's adaptive mode): as phase 6, on the
+     adaptive grid, timed beside the static grid's K2 f32;
   7. roi_align_window (K5): window-fit levels at the serving shapes, f32 and
      bf16 features, an eighth of the boxes wide and an eighth tall (aspect
      4.5 to 8.5); f32 within atol 2e-5 + rtol 1e-5, bf16 within one bf16
@@ -44,7 +51,9 @@ In order it
      the same seeded model on the CPU (plain versions) on a 2x64x96 batch:
      f32 (configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml), bf16
      (configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml) and bf16 with
-     TPU.ROI_ALIGN_IMPL pallas;
+     TPU.ROI_ALIGN_IMPL pallas; then the parity config
+     (configs/VOC-COCO/openset_rcnn_R50_FPN_128k_parity.yaml: f32, gather
+     levels, the adaptive grid), serving and one training step;
  10. serve: Predictor on the f32 config at 832x1344, batch 8, seeded random
      weights; warm-up, then timed batches with CUDA events, the stage split,
      launch counts, output checks, and the cascade with kernel NMS against
@@ -54,7 +63,8 @@ In order it
      launch counts, finite losses, frozen parameters and buffers bitwise
      unchanged, trainable ones moved, one step under torch.profiler (device
      idle share, device time by kernel), and two steps from one state on
-     one batch giving bitwise equal parameters (a gate);
+     one batch giving bitwise equal parameters (a gate); then train_parity,
+     the same on the parity config (K1's and K2 f32's adaptive modes);
  12. serve_bf16: the same on the production bf16 config (batch 8);
  13. eval: the evaluation path, do_test, on the production bf16 config over
      44 seeded synthetic records (28 landscape 800x1200, 16 portrait
@@ -68,8 +78,22 @@ In order it
      fused cascade (K4) against the exact host cascade on every image that
      did not overflow, with equal VOC metric dicts, do_test with
      TPU.EVAL_FUSED false, and eval_type="proposals" over two batches;
+     then parity_eval: do_test on the parity config over the same records
+     (every batch through K1's adaptive mode and the host cascade);
  14. train_bf16: Trainer on the production config at batch 16 (its own
-     IMS_PER_BATCH), with one profiled step.
+     IMS_PER_BATCH), with one profiled step;
+ 15. do_train: the training CLI, python -m openset_rcnn_tpu_torch.train,
+     run in this process (its main) on the production config at batch 16
+     on synthetic records written to a temporary directory (removed after
+     the phase) and registered in the catalog, MODEL.WEIGHTS a port
+     checkpoint of a seeded init with FrozenBN calibrated; MAX_ITER 6 with
+     a checkpoint and an eval every 3, then --resume to 8; gates on finite
+     losses, the metrics.json iterations (1, the eval at 3, 6; then 7, 8),
+     the checkpoints (3, 6, 8), the resumed step (6) and K1, K2 bf16, K3
+     and K4 launched; then --resume to 20 without evals, whose steady steps
+     give the loop's img/s (beside Trainer.step alone) and whose last two
+     steps, profiled, the device idle share (profiled, and their busy time
+     against the unprofiled steps' span).
 Each path is driven with every launch count at 0 just before it and read
 just after. The entry points set their own numerics (no TF32, no bf16
 reduced-precision reductions; deterministic cuDNN in the train step): the
@@ -108,6 +132,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml"
 CONFIG_BF16 = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml"  # the production config
+# f32, gather levels, the adaptive grid, the host cascade
+CONFIG_PARITY = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_parity.yaml"
 BATCH = 8
 BUCKET = (832, 1344)
 STRIDES = (4, 8, 16, 32)
@@ -149,6 +175,14 @@ EVAL_DATASET = "chip_smoke_eval"
 EVAL_LANDSCAPE, EVAL_PORTRAIT = 28, 16  # records of 800x1200 and of 1200x800
 EVAL_HW = (800, 1200)
 EVAL_TOL = 1e-5                   # fused vs host cascade: boxes and scores, scaled by max(1, max|want|)
+ADAPTIVE = -1                     # TPU.ROI_SAMPLING_RATIO of the adaptive grid
+# do_train through the CLI: synthetic records on disk (landscape, portrait,
+# test), the run's iterations and periods
+DO_TRAIN_RECORDS = (32, 16, 8)
+DO_TRAIN_ITERS, DO_TRAIN_PERIOD, DO_TRAIN_RESUME_ITERS = 6, 3, 8
+# the timed run: --resume from 8 to 20 without evals; its first step is
+# warm-up, its last two are profiled, the 9 intervals between them timed
+DO_TRAIN_TIMED_ITERS, DO_TRAIN_PROFILED = 20, 2
 COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",
                "rpn/num_proposals", "roi_head/num_fg_samples", "roi_head/num_bg_samples")
 
@@ -369,22 +403,27 @@ def load_cfg(path=CONFIG, **tpu):
 
 
 def counted():
-    """The wrappers that count their kernel launches, by kernel name."""
+    """The wrappers that count their kernel launches and the attribute each
+    count is kept in, by kernel name (the adaptive grid's modes of K1 and K2
+    f32 are counted apart)."""
     from openset_rcnn_tpu_torch.ops.iou_match import iou_match
     from openset_rcnn_tpu_torch.ops.nms import nms_keep
     from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd, roi_align_bwd_bf16, roi_align_window
 
-    return {"roi_align_fwd": roi_align, "roi_align_bwd": roi_align_bwd, "roi_align_bwd_bf16": roi_align_bwd_bf16,
-            "iou_match": iou_match, "nms_keep": nms_keep, "roi_align_window": roi_align_window}
+    return {"roi_align_fwd": (roi_align, "launches"), "roi_align_fwd_adaptive": (roi_align, "adaptive_launches"),
+            "roi_align_bwd": (roi_align_bwd, "launches"),
+            "roi_align_bwd_adaptive": (roi_align_bwd, "adaptive_launches"),
+            "roi_align_bwd_bf16": (roi_align_bwd_bf16, "launches"), "iou_match": (iou_match, "launches"),
+            "nms_keep": (nms_keep, "launches"), "roi_align_window": (roi_align_window, "launches")}
 
 
 def reset_launches():
-    for fn in counted().values():
-        fn.launches = 0
+    for fn, attr in counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
 
 
 def reference_weights(torch, cfg):
@@ -726,6 +765,111 @@ def phase_roi_align_bwd(torch, dev):
                 **{k: v for k, v in figures.items() if k != f"uniform_b{TRAIN_BATCH}"})
 
 
+def adaptive_samples(torch, boxes, levels, P=7):
+    """(B, R) samples a bin of the adaptive grid, n_y * n_x, as the kernels
+    count them (clip(ceil(extent / P), 1, 8) per axis at the RoI's level)."""
+    scale = 1.0 / torch.tensor(STRIDES, dtype=torch.float32, device=boxes.device)[levels.long()]
+    ext = torch.stack([(boxes[..., 3] * scale - 0.5) - (boxes[..., 1] * scale - 0.5),
+                       (boxes[..., 2] * scale - 0.5) - (boxes[..., 0] * scale - 0.5)], -1)
+    n = torch.clamp(torch.ceil(ext / torch.full_like(ext, P)), 1, 8)
+    return n[..., 0] * n[..., 1], n
+
+
+def phase_roi_align_adaptive(torch, dev):
+    """K1 on the adaptive grid (sampling_ratio -1) against its plain version
+    at the serving shapes and at B=16, R=512, on boxes of sides 8-800 px
+    (tiny: 1 sample a bin; elongated: the clip at 8), timed beside the
+    static grid's K1 on the same boxes."""
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
+
+    H, W = BUCKET
+    C = 256
+    figures = {}
+    for label, B, R, seed in (("serve", BATCH, 4 * 1000 + math.ceil(H / 64) * math.ceil(W / 64), 11),
+                              ("train_bf16", TRAIN_BATCH_BF16, TRAIN_ROIS, 12)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        feats = [torch.randn(B, math.ceil(H / s), math.ceil(W / s), C, generator=g, device=dev).to(torch.bfloat16)
+                 for s in STRIDES]
+        boxes = roi_boxes(torch, g, B, R, dev)
+        levels = assign_levels(boxes)
+        samples, n = adaptive_samples(torch, boxes, levels)
+        check(float(n.min()) == 1.0 and float(n.max()) == 8.0,
+              f"roi_align adaptive ({label}): samples per bin axis span {float(n.min())}-{float(n.max())}, not 1-8")
+        got = roi_align(feats, boxes, levels, STRIDES, 7, ADAPTIVE)
+        want = roi_align_plain(feats, boxes, levels, STRIDES, 7, ADAPTIVE)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        max_abs = float(err.max())
+        bitwise = bool(torch.equal(got, want))
+        check(bool((err <= ATOL + RTOL * want.abs()).all()), f"roi_align adaptive ({label}) kernel vs plain: "
+              f"max abs {max_abs}")
+        del want, err
+        ms = time_ms(torch, lambda: roi_align(feats, boxes, levels, STRIDES, 7, ADAPTIVE), 10)
+        static_ms = time_ms(torch, lambda: roi_align(feats, boxes, levels, STRIDES), 10)
+        plain_ms = time_ms(torch, lambda: roi_align_plain(feats, boxes, levels, STRIDES, 7, ADAPTIVE), 1)
+        bytes_moved = got.numel() * 4 + sum(f.numel() * 2 for f in feats) + boxes.numel() * 4 + levels.numel() * 4
+        # per output value: 8 flops a sample this run's boxes take, then the division
+        flops = C * 49 * float((samples * 8 + 1).sum())
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        hist = torch.bincount(n.flatten().long(), minlength=9)[1:].tolist()
+        print(f"roi_align adaptive ({label}): B={B} R={R} C={C}; samples per bin axis 1..8: {hist}, mean samples a "
+              f"bin {float(samples.mean()):.2f} (static grid: 4); kernel vs plain {'bitwise equal' if bitwise else ''}"
+              f" max abs err {max_abs:.3e}; kernel {ms:.4f} ms, static-grid K1 on the same boxes {static_ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bytes_moved / 1e9:.3f} GB, "
+              f"{flops / 1e9:.1f} GFLOP)", flush=True)
+        figures[label] = dict(max_abs_err=max_abs, bitwise=bitwise, ms=ms, static_ms=static_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, mean_samples=float(samples.mean()))
+        del got, feats
+    return dict(name="roi_align_fwd_adaptive", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_fwd.cu",
+                replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:269", library_ms=None,
+                jax_adaptive_path="openset_rcnn_tpu/ops/roi_align.py:75", **figures["serve"],
+                train_shapes=figures["train_bf16"])
+
+
+def phase_roi_align_bwd_adaptive(torch, dev):
+    """K2 f32 on the adaptive grid on ``bwd_cases``: within tolerance of its
+    plain version and bitwise equal from launch to launch."""
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align_bwd, roi_align_bwd_plain
+
+    P = 7
+    H, W = BUCKET
+    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
+    figures = {}
+    for label, B, boxes, levels, cot in bwd_cases(torch, dev):
+        R, C = cot.shape[1], cot.shape[-1]
+        samples, _ = adaptive_samples(torch, boxes, levels)
+        got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE)
+        again = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE)
+        want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"roi_align_bwd adaptive ({label}, B={B}): two launches differ")
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        check(max_abs <= BWD_TOL * scale,
+              f"roi_align_bwd adaptive kernel vs plain ({label}, B={B}): max abs {max_abs} > {BWD_TOL} * {scale}")
+        del got, again
+        ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE), 10)
+        static_ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, 2), 10)
+        plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE), 1)
+        acc_bytes = sum(w.numel() * 4 for w in want)
+        n_bytes = cot.numel() * 4 + boxes.numel() * 4 + levels.numel() * 4 + acc_bytes
+        flops = C * P * P * float((samples * ROI_BWD_FLOPS_PER_SAMPLE + 1).sum())
+        bound_ms, bound_by = bound(n_bytes, flops)
+        print(f"roi_align_bwd adaptive ({label}): B={B} R={R} C={C}, mean samples a bin "
+              f"{float(samples.mean()):.2f}; max abs err {max_abs:.3e} (limit {BWD_TOL * scale:.3e}); two launches "
+              f"bitwise equal; kernel {ms:.4f} ms, static-grid K2 f32 on the same RoIs {static_ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e9:.3f} GB)", flush=True)
+        figures[f"{label}_b{B}"] = dict(max_abs_err=max_abs, ms=ms, static_ms=static_ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by, mean_samples=float(samples.mean()))
+        del want, cot
+    main = figures[f"uniform_b{TRAIN_BATCH}"]
+    return dict(name="roi_align_bwd_adaptive", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
+                replaces="openset_rcnn_tpu/ops/pallas/roi_align_v2.py:487", library_ms=None,
+                jax_adaptive_path="openset_rcnn_tpu/ops/roi_align.py:425", **main,
+                **{k: v for k, v in figures.items() if k != f"uniform_b{TRAIN_BATCH}"})
+
+
 def timings(torch, dev):
     """K3 and K2 f32 only, no gates (``--timings``): the wrapper's time
     (CUDA events) and the device time per call (profiler)."""
@@ -871,9 +1015,9 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - wall) * 1e3 / TRAIN_STEPS
     launches = read_launches()
-    bwd = "roi_align_bwd_bf16" if cfg.TPU.ROI_ALIGN_BWD == "pallas_bf16" else "roi_align_bwd"
+    fwd, bwd = train_kernels(cfg)
     want = {name: 0 for name in launches}
-    want.update({"roi_align_fwd": TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS})
+    want.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS})
     check(launches == want, f"{label} launches {launches}, expected {want}")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
@@ -920,6 +1064,15 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     return launches, dict(ms_per_step=ms, img_per_s=batch_size * 1e3 / ms, batch=batch_size, stages_ms=stages,
                           peak_gb=peak_gb, device_idle_share=profile["idle_share"],
                           repeat_bitwise=not differ, flags_inside=flags["inside"])
+
+
+def train_kernels(cfg):
+    """The RoIAlign forward and backward kernels a train step of ``cfg``
+    launches: the adaptive grid's modes (which take f32 accumulators), or
+    the static grid's K1 and the K2 mode of ``TPU.ROI_ALIGN_BWD``."""
+    if cfg.TPU.ROI_SAMPLING_RATIO == ADAPTIVE:
+        return "roi_align_fwd_adaptive", "roi_align_bwd_adaptive"
+    return "roi_align_fwd", "roi_align_bwd_bf16" if cfg.TPU.ROI_ALIGN_BWD == "pallas_bf16" else "roi_align_bwd"
 
 
 def repeat_step(torch, trainer, batch):
@@ -1071,6 +1224,21 @@ def phase_roi_align_bwd_bf16(torch, dev):
                 clustered=dict(ms=clustered_ms, max_abs_err=max_abs_c))
 
 
+def device_busy_ms(prof):
+    """The union of the device activity's intervals in a finished profile."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(bool(spans), "profile: the profiler saw no device activity")
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy_us, lo, hi = busy_us + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy_us + hi - lo) / 1e3
+
+
 def profile_step(torch, step):
     """One step under torch.profiler: the device's busy time (the union of
     its kernels' intervals) against the step's span on CUDA events, and the
@@ -1085,15 +1253,7 @@ def profile_step(torch, step):
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(bool(spans), "profile: the profiler saw no device activity")
-    busy_us, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy_us, lo, hi = busy_us + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    busy_ms = (busy_us + hi - lo) / 1e3
+    busy_ms = device_busy_ms(prof)
     kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), key=lambda kv: -kv[1])
     own = {name: sum(ms for key, ms in kernels if name in key)
@@ -1291,6 +1451,236 @@ def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
                           proposals=ar)
 
 
+def phase_parity_eval(torch, dev, cfg):
+    """do_test on the parity config (f32, gather levels, the adaptive grid,
+    the host cascade) over the eval phase's records at full width: every
+    batch through K1's adaptive mode, no other kernel; img/s of the whole
+    call and of its inference_on_dataset loop alone (no model build)."""
+    import numpy as np
+    from openset_rcnn_tpu_torch.engine.train_loop import do_test
+    from openset_rcnn_tpu_torch.evaluation import testing
+
+    check(cfg.TPU.ROI_SAMPLING_RATIO == ADAPTIVE and not cfg.TPU.EVAL_FUSED and cfg.TPU.DTYPE == "float32",
+          "the parity config is not f32 with the adaptive grid and the host cascade")
+    records, pixels = eval_records(np, EVAL_HW)
+    register_eval(EVAL_DATASET, records)
+    transform = in_memory_transform(cfg, pixels)
+    do_test(cfg, datasets=[EVAL_DATASET], transform=transform)  # warm: the model, cuDNN, the kernel library
+    torch.cuda.synchronize()
+    # do_test's loop, timed apart from the model build by inference_on_dataset's own timings
+    loop, inference_on_dataset = {}, testing.inference_on_dataset
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        return inference_on_dataset(*args, **kwargs, timings=loop)
+
+    testing.inference_on_dataset = timed_loop
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = do_test(cfg, datasets=[EVAL_DATASET], transform=transform)[EVAL_DATASET]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        testing.inference_on_dataset = inference_on_dataset
+    check(loop.get("images") == len(records), f"parity eval: the loop's timings {loop}")
+    n_batches = sum(math.ceil(n / cfg.TPU.EVAL_BATCH_SIZE) for n in (EVAL_LANDSCAPE, EVAL_PORTRAIT))
+    want = {name: 0 for name in launches}
+    want["roi_align_fwd_adaptive"] = n_batches
+    check(launches == want, f"parity eval launches {launches}, expected {want}")
+    check(all(math.isfinite(v) for v in metrics.values()) and {"WI", "AOSE", "mAP"} <= set(metrics),
+          f"parity eval: metrics {metrics}")
+    print(f"parity eval: do_test on {EVAL_DATASET} (configs/VOC-COCO/{CONFIG_PARITY.name}: f32, gather levels, "
+          f"adaptive grid, host cascade), {len(records)} images in {n_batches} batches: "
+          f"{loop['images'] / loop['seconds']:.2f} img/s over the inference_on_dataset loop "
+          f"({loop['seconds'] * 1e3:.1f} ms), {len(records) / seconds:.2f} img/s over the whole call "
+          f"({seconds * 1e3:.1f} ms, model build included); " + json.dumps(metrics)
+          + "; launches " + json.dumps(launches), flush=True)
+    return launches, dict(metrics=metrics, img_per_s=loop["images"] / loop["seconds"], loop_seconds=loop["seconds"],
+                          call_img_per_s=len(records) / seconds, seconds=seconds, batches=n_batches)
+
+
+def register_records(name, records):
+    from openset_rcnn_tpu_torch.data import DatasetCatalog, MetadataCatalog, VOC_COCO_CATEGORIES
+
+    DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: records)
+    MetadataCatalog.get(name).update(evaluator_type="voc_records", thing_classes=VOC_COCO_CATEGORIES)
+
+
+def phase_do_train(torch, dev, step_alone_img_per_s):
+    """``python -m openset_rcnn_tpu_torch.train`` as a user runs it, in this
+    process (``main``), on the production config at full width, its batch
+    16 and the 832x1344 bucket: synthetic records written to a temporary
+    directory (removed at the end) and registered in the catalog,
+    ``MODEL.WEIGHTS`` a port checkpoint of a seeded init with FrozenBN
+    calibrated on the loader's first batch (from a raw random trunk the
+    production LR diverges), MAX_ITER 6 with a checkpoint and an eval every
+    3, then ``--resume`` to 8. Gates: finite losses, the metrics.json
+    iterations, the checkpoints, the resumed step, and K1, K2 bf16, K3 and
+    K4 launched. Then ``--resume`` to 20 without evals: the loop's img/s
+    from CUDA events at the start of each steady step, beside Trainer.step
+    alone; its last two steps under torch.profiler give the device idle
+    share, profiled and as their busy time against the span of two
+    unprofiled steps (the profiler slows the loader's threads)."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_do_train_"))
+    try:
+        return do_train_run(torch, dev, step_alone_img_per_s, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def do_train_run(torch, dev, step_alone_img_per_s, work):
+    """The runs of ``phase_do_train``, with their records, weights and
+    output under ``work``."""
+    from openset_rcnn_tpu_torch import train as cli
+    from openset_rcnn_tpu_torch.data import TrainLoader, generate_synthetic_dataset
+    from openset_rcnn_tpu_torch.engine import train_state
+    from openset_rcnn_tpu_torch.engine.train_loop import build_train_transform
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+    from torch.profiler import ProfilerActivity, profile
+
+    train_name, test_name = "chip_smoke_train", "chip_smoke_test"
+    t0 = time.perf_counter()
+    n_land, n_port, n_test = DO_TRAIN_RECORDS
+    land = generate_synthetic_dataset(str(work / "land"), n_land, EVAL_HW, num_classes=80, max_objects=6, seed=21)
+    port = generate_synthetic_dataset(str(work / "port"), n_port, EVAL_HW[::-1], num_classes=80, max_objects=6,
+                                      seed=22)
+    for i, r in enumerate(port):
+        r["image_id"] = n_land + i
+    test = generate_synthetic_dataset(str(work / "test"), n_test, EVAL_HW, num_classes=80, max_objects=6, seed=23)
+    register_records(train_name, land + port)
+    register_records(test_name, test)
+
+    cfg = load_cfg(CONFIG_BF16)
+    batch_size = cfg.SOLVER.IMS_PER_BATCH
+    check(batch_size == TRAIN_BATCH_BF16 and tuple(cfg.TPU.TRAIN_BUCKET) == BUCKET,
+          f"the production config trains at batch {batch_size} on {cfg.TPU.TRAIN_BUCKET}")
+    cfg.DATASETS.TRAIN = (train_name,)
+    first, _ = next(iter(TrainLoader(land + port, build_train_transform(cfg), batch_size, seed=0)))
+    model = build_model(ModelSpec.from_cfg(cfg), dev, seed=0)
+    calibrated = calibrate_frozen_bn(torch, model, first.images.to(dev), first.image_hw.to(dev))
+    weights = work / "init.pt"
+    torch.save({"model": model.state_dict()}, weights)
+    del model
+    torch.cuda.empty_cache()
+    out = work / "run"
+    # flags first: KEY VALUE pairs take the rest of the command line
+    argv = ["SEED", "0", "OUTPUT_DIR", str(out), "MODEL.WEIGHTS", str(weights), "MODEL.RPN.DELTA_BIAS_INIT", "1.0",
+            "DATASETS.TRAIN", f"('{train_name}',)", "DATASETS.TEST", f"('{test_name}',)"]
+    periods = ["SOLVER.CHECKPOINT_PERIOD", str(DO_TRAIN_PERIOD), "TEST.EVAL_PERIOD", str(DO_TRAIN_PERIOD)]
+    print(f"do_train: {n_land} + {n_port} train and {n_test} test records written ({EVAL_HW[0]}x{EVAL_HW[1]} and "
+          f"{EVAL_HW[1]}x{EVAL_HW[0]} PNGs), {calibrated} FrozenBN statistics calibrated on the loader's first "
+          f"batch, weights saved in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # each step's start: an event on the device's timeline, the host clock, the step count
+    starts, window = [], {}
+    step = train_state.Trainer.step
+    profiled_from = DO_TRAIN_TIMED_ITERS - DO_TRAIN_PROFILED
+
+    def timed(self, batch, *args, **kwargs):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        starts.append((self.state.step, event, time.perf_counter()))
+        if self.state.step == profiled_from:  # the timed run's last steps, under the profiler
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["start"] = event
+        metrics = step(self, batch, *args, **kwargs)
+        if self.state.step == DO_TRAIN_TIMED_ITERS:
+            window["end"] = torch.cuda.Event(enable_timing=True)
+            window["end"].record()
+            torch.cuda.synchronize()
+            window["prof"].__exit__(None, None, None)
+        return metrics
+
+    def run(*flags, max_iter):
+        state = cli.main(cli.get_parser().parse_args(
+            ["--config-file", str(CONFIG_BF16), *flags, *argv, "SOLVER.MAX_ITER", str(max_iter)]))
+        torch.cuda.synchronize()
+        return state
+
+    reset_launches()
+    train_state.Trainer.step = timed
+    try:
+        wall = time.perf_counter()
+        state = run(*periods, max_iter=DO_TRAIN_ITERS)
+        wall = time.perf_counter() - wall
+        check(state.step == DO_TRAIN_ITERS, f"do_train stopped at {state.step}")
+        first_run = list(starts)
+        state = run("--resume", *periods, max_iter=DO_TRAIN_RESUME_ITERS)
+        launches = read_launches()
+        resumed = starts[len(first_run):]
+
+        lines = [json.loads(line) for line in open(out / "metrics.json")]
+        iterations = [line["iteration"] for line in lines]
+        check(iterations == [1, DO_TRAIN_PERIOD, DO_TRAIN_ITERS, DO_TRAIN_ITERS + 1, DO_TRAIN_RESUME_ITERS],
+              f"do_train: metrics.json iterations {iterations}")
+        eval_line = lines[1]
+        check(f"{test_name}/mAP" in eval_line and all(math.isfinite(v) for v in eval_line.values()),
+              f"do_train: the eval line {eval_line}")
+        losses = [line["total_loss"] for line in lines if "total_loss" in line]
+        check(len(losses) == 4 and all(math.isfinite(v) for v in losses), f"do_train: losses {losses}")
+        saved = sorted(p.name for p in out.glob("model_*.pt"))
+        want_saved = [f"model_{i:07d}.pt" for i in (DO_TRAIN_PERIOD, DO_TRAIN_ITERS, DO_TRAIN_RESUME_ITERS)]
+        check(saved == want_saved and (out / "last_checkpoint").read_text() == want_saved[-1],
+              f"do_train: checkpoints {saved}")
+        check(resumed[0][0] == DO_TRAIN_ITERS and state.step == DO_TRAIN_RESUME_ITERS,
+              f"do_train: resumed at step {resumed[0][0]}, ended at {state.step}")
+        check([i for i, _, _ in first_run] == list(range(DO_TRAIN_ITERS)), "do_train: the first run's steps")
+        check((out / "config.yaml").exists() and (out / "log.txt").stat().st_size > 0,
+              "do_train: config.yaml, log.txt")
+        for name in ("roi_align_fwd", "roi_align_bwd_bf16", "iou_match", "nms_keep"):
+            check(launches[name] > 0, f"do_train: {name} was not launched ({launches})")
+
+        # the timed run: no evals, a checkpoint only at its end
+        del state
+        torch.cuda.empty_cache()
+        state = run("--resume", "SOLVER.CHECKPOINT_PERIOD", str(DO_TRAIN_TIMED_ITERS), "TEST.EVAL_PERIOD", "0",
+                    max_iter=DO_TRAIN_TIMED_ITERS)
+        timed_run = starts[len(first_run) + len(resumed):]
+    finally:
+        train_state.Trainer.step = step
+    check([i for i, _, _ in timed_run] == list(range(DO_TRAIN_RESUME_ITERS, DO_TRAIN_TIMED_ITERS))
+          and state.step == DO_TRAIN_TIMED_ITERS, f"do_train: the timed run's steps {[i for i, _, _ in timed_run]}")
+    timed_iterations = [json.loads(line)["iteration"] for line in open(out / "metrics.json")][len(lines):]
+    check(timed_iterations == [DO_TRAIN_RESUME_ITERS + 1, DO_TRAIN_TIMED_ITERS],
+          f"do_train: the timed run's metrics.json iterations {timed_iterations}")
+
+    # steady: from the second step's start to the first profiled step's
+    steady = range(1, len(timed_run) - DO_TRAIN_PROFILED)
+    step_ms = [timed_run[i][1].elapsed_time(timed_run[i + 1][1]) for i in steady]
+    host_ms = [(timed_run[i + 1][2] - timed_run[i][2]) * 1e3 for i in steady]
+    mean_ms = sum(step_ms) / len(step_ms)
+    loop_img_per_s = batch_size * 1e3 / mean_ms
+    span_ms = window["start"].elapsed_time(window["end"])
+    busy_ms = device_busy_ms(window["prof"])
+    idle = max(0.0, 1.0 - busy_ms / span_ms)
+    idle_unprofiled = max(0.0, 1.0 - busy_ms / (DO_TRAIN_PROFILED * mean_ms))
+    print(f"do_train (CLI, {CONFIG_BF16.name}, batch {batch_size}): metrics.json iterations "
+          f"{iterations + timed_iterations}, checkpoints {saved} (and {DO_TRAIN_TIMED_ITERS} from the timed run), "
+          f"resumed at step {resumed[0][0]} and at {timed_run[0][0]}; total_loss {[round(v, 4) for v in losses]}; "
+          f"eval at {DO_TRAIN_PERIOD}: " + json.dumps({k: v for k, v in eval_line.items() if k != 'time'}),
+          flush=True)
+    print(f"do_train: loop {loop_img_per_s:.2f} img/s over {len(step_ms)} steady steps of the timed run "
+          f"({len(step_ms) * batch_size} images; device ms from step start to step start "
+          f"{[round(x, 2) for x in step_ms]}, host ms "
+          f"{[round(x, 2) for x in host_ms]}) against Trainer.step alone {step_alone_img_per_s:.2f} img/s "
+          f"(train_bf16 phase); first run {wall:.1f} s for {DO_TRAIN_ITERS} steps with build, weights, eval and "
+          f"checkpoints; device idle share over the timed run's last {DO_TRAIN_PROFILED} steps {idle:.3f} profiled "
+          f"(busy {busy_ms:.1f} of {span_ms:.1f} ms), {idle_unprofiled:.3f} against {DO_TRAIN_PROFILED} unprofiled "
+          f"steady steps ({DO_TRAIN_PROFILED * mean_ms:.1f} ms); launches (first two runs) " + json.dumps(launches),
+          flush=True)
+    return launches, dict(loop_img_per_s=loop_img_per_s, step_ms=step_ms, host_ms=host_ms,
+                          step_alone_img_per_s=step_alone_img_per_s, device_idle_share=idle,
+                          device_idle_share_unprofiled=idle_unprofiled, first_run_s=wall,
+                          iterations=iterations + timed_iterations, checkpoints=saved, losses=losses)
+
+
 def step_timings(torch, dev):
     """``--step-timings``: ms/step of train (f32, batch 4) and train_bf16
     (batch 16), one profiled f32 step, and whether two steps repeat bitwise."""
@@ -1377,7 +1767,8 @@ def main():
         print(f"step timings of {root}: " + json.dumps(step_timings(torch, dev)))
         return 0
     kernels = [phase_roi_align(torch, dev), phase_nms(torch, dev), phase_iou_match(torch, dev),
-               phase_roi_align_bwd(torch, dev)]
+               phase_roi_align_bwd(torch, dev), phase_roi_align_adaptive(torch, dev),
+               phase_roi_align_bwd_adaptive(torch, dev)]
     launch_floor = phase_launch_floor(torch, dev)
     paths = {}
     window, paths["window"] = phase_roi_align_window(torch, dev)
@@ -1390,19 +1781,27 @@ def main():
     phase_train_reference(torch, dev, load_cfg(CONFIG_BF16), "bf16", bf16=True)
     phase_train_reference(torch, dev, load_cfg(CONFIG_BF16, ROI_ALIGN_IMPL="pallas"),
                           "bf16, ROI_ALIGN_IMPL pallas", bf16=True, wide=True)
+    phase_reference(torch, dev, load_cfg(CONFIG_PARITY), "parity", bf16=False)
+    phase_train_reference(torch, dev, load_cfg(CONFIG_PARITY), "parity", bf16=False)
     results = {}
     paths["serve"], results["serve"] = phase_serve(torch, dev, load_cfg(), "serve")
     paths["train"], results["train"] = phase_train(torch, dev, load_cfg(), "train", TRAIN_BATCH)
+    paths["train_parity"], results["train_parity"] = phase_train(torch, dev, load_cfg(CONFIG_PARITY),
+                                                                 "train_parity", TRAIN_BATCH)
     paths["serve_bf16"], results["serve_bf16"] = phase_serve(torch, dev, load_cfg(CONFIG_BF16), "serve_bf16")
     paths["eval"], results["eval"] = phase_eval(torch, dev, load_cfg(CONFIG_BF16), load_cfg(),
                                                 results["serve_bf16"]["img_per_s"])
+    paths["parity_eval"], results["parity_eval"] = phase_parity_eval(torch, dev, load_cfg(CONFIG_PARITY))
     paths["train_bf16"], results["train_bf16"] = phase_train(torch, dev, load_cfg(CONFIG_BF16), "train_bf16",
                                                              TRAIN_BATCH_BF16, calibrate=True)
+    paths["do_train"], results["do_train"] = phase_do_train(torch, dev, results["train_bf16"]["img_per_s"])
     # launches: from the path of this slice that runs the kernel (eval: K1,
-    # K4; train: K2 f32, K3; train_bf16: K2 bf16; K5, which no path of the
+    # K4; train: K2 f32, K3; train_bf16: K2 bf16; the adaptive modes of K1
+    # and K2 f32: parity_eval and train_parity; K5, which no path of the
     # model runs: its own call)
     home = {"roi_align_fwd": "eval", "nms_keep": "eval", "roi_align_bwd": "train", "iou_match": "train",
-            "roi_align_bwd_bf16": "train_bf16", "roi_align_window": "window"}
+            "roi_align_bwd_bf16": "train_bf16", "roi_align_window": "window",
+            "roi_align_fwd_adaptive": "parity_eval", "roi_align_bwd_adaptive": "train_parity"}
     for k in kernels:
         k["launches"] = paths[home[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: launches[k["name"]] for p, launches in paths.items()}

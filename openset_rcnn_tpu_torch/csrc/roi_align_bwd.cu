@@ -64,6 +64,14 @@
 // the plain version sums in another order, so the card compares against it
 // by tolerance.
 //
+// The adaptive grid (S == -1, TPU.ROI_SAMPLING_RATIO -1; f32 accumulators
+// only) is a third instantiation, roi_align_bwd_adaptive_kernel, on its own
+// policy (F32AdaptiveAcc): per RoI and axis n = clip(ceil(bin extent), 1, 8)
+// samples a bin on a lattice of 8 (up to 56 a side, so its shared memory
+// grows from ~74 KB to ~127 KB), entries only from the n active samples of
+// each bin, and the cotangent divided by the RoI's n_y * n_x. Owners, order
+// and so determinism are those of the static grid.
+//
 // Costs: every block repeats the scan and the rounds' geometry for its tile
 // (twice per tile at C = 256 in the f32 mode); the cotangent is read through
 // L1 rather than staged, since a round's 8 RoIs x 49 bins x C channels would
@@ -83,11 +91,12 @@ struct Sample {
   float frac, ok;
 };
 
-// sample idx of the axis [lo, hi]: the forward kernel's geometry, operation
-// for operation
-__device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, int idx, int extent) {
+// sample idx of the axis [lo, hi] on a lattice of S samples a bin, of which
+// the bin takes n (n == S but on the adaptive grid): the forward kernel's
+// geometry, operation for operation
+__device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, int n, int idx, int extent) {
   const float bin = (hi - lo) / (float)P;
-  const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
+  const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)n;
   float v = lo + in_bins * bin;
   const float ext = (float)extent;
   Sample s;
@@ -102,14 +111,15 @@ __device__ __forceinline__ Sample sample_at(float lo, float hi, int P, int S, in
 }
 
 // The (bin, weight * in_range) entries through which one axis's samples
-// (lo, hi, frac, ok indexed by sample, bin-major) reach row or column
-// `cell`, in the TPU kernel's sample order: sub-sample-major, the lower
-// neighbour's entry before the upper one's, so an edge-clamped neighbour
-// takes two separate adds (roi_align_v2.py:414-442). Returns their number.
+// (lo, hi, frac, ok indexed by sample, bin-major, S a bin of which the
+// first n are taken) reach row or column `cell`, in the TPU kernel's sample
+// order: sub-sample-major, the lower neighbour's entry before the upper
+// one's, so an edge-clamped neighbour takes two separate adds
+// (roi_align_v2.py:414-442). Returns their number.
 __device__ __forceinline__ int collect_entries(const int* lo, const int* hi, const float* frac, const float* ok,
-                                               int P, int S, int cell, unsigned char* bin, float* wt) {
+                                               int P, int S, int n, int cell, unsigned char* bin, float* wt) {
   int m = 0;
-  for (int a = 0; a < S; ++a) {
+  for (int a = 0; a < n; ++a) {
     for (int pb = 0; pb < P; ++pb) {
       const int p = pb * S + a;
       const float fr = frac[p], o = ok[p];
@@ -150,6 +160,7 @@ struct Bf16Acc {
   static constexpr int kVec = 8;    // channels per thread: one 16-byte store
   static constexpr int kWords = 4;
   static constexpr int kMaxPS = 16;
+  static constexpr bool kAdaptive = false;
 
   __device__ static float lo_f32(unsigned int w) { return __uint_as_float(w << 16); }
   __device__ static float hi_f32(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
@@ -180,6 +191,7 @@ struct F32Acc {
   static constexpr int kVec = 4;    // channels per thread: one 16-byte store
   static constexpr int kWords = 4;
   static constexpr int kMaxPS = 32;
+  static constexpr bool kAdaptive = false;
 
   __device__ static void add(Word* acc, const float* win) {
 #pragma unroll
@@ -195,6 +207,19 @@ struct F32Acc {
     }
   }
 };
+
+// the adaptive grid in f32: the lattice of 8 samples a bin, P * 8 <= 56
+struct F32AdaptiveAcc : F32Acc {
+  static constexpr int kLattice = 8;
+  static constexpr int kMaxPS = 56;
+  static constexpr bool kAdaptive = true;
+};
+
+// the adaptive grid's samples per bin on the axis [lo, hi] (the gather
+// path's n_y, n_x), as the forward kernel computes them
+__device__ __forceinline__ int adaptive_count(float lo, float hi, int P) {
+  return (int)fminf(fmaxf(ceilf((hi - lo) / (float)P), 1.0f), (float)F32AdaptiveAcc::kLattice);
+}
 
 struct OwnerLevels {
   void* acc[kLevels];
@@ -216,6 +241,7 @@ struct OwnerShared {
   int hi[kRoiGroup][2][Acc::kMaxPS];
   float frac[kRoiGroup][2][Acc::kMaxPS];
   float ok[kRoiGroup][2][Acc::kMaxPS];
+  int cnt[kRoiGroup][2];  // [RoI of the round][axis]: samples a bin takes
   // [RoI of the round][tile row, then tile column]: entries reaching it
   int n[kRoiGroup][kLists];
   float wt[kRoiGroup][kLists][2 * Acc::kMaxPS];           // entry: its weight * in_range
@@ -223,8 +249,9 @@ struct OwnerShared {
 };
 
 // kVec cotangent values / count from p: 16-byte loads when vec, else
-// masked scalar loads, zero beyond n
-template <int kVec>
+// masked scalar loads, zero beyond n; times inv_count, or divided by it
+// (kDivide: the adaptive grid's per-RoI count)
+template <int kVec, bool kDivide = false>
 __device__ __forceinline__ void load_cot(const float* p, int n, bool vec, float inv_count, float* out) {
   if (vec) {
 #pragma unroll
@@ -236,8 +263,13 @@ __device__ __forceinline__ void load_cot(const float* p, int n, bool vec, float 
 #pragma unroll
     for (int v = 0; v < kVec; ++v) out[v] = v < n ? __ldg(p + v) : 0.0f;
   }
+  if (kDivide) {
 #pragma unroll
-  for (int v = 0; v < kVec; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
+    for (int v = 0; v < kVec; ++v) out[v] = out[v] / inv_count;  // d(sum / count), as the gather path's VJP
+  } else {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) out[v] = out[v] * inv_count;  // d(mean), as the TPU kernel scales it
+  }
 }
 
 template <class Acc>
@@ -259,6 +291,7 @@ __device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLeve
   const int grp = t % kGroups, owner = t / kGroups;
   const int c = (blockIdx.y * kGroups + grp) * kVec;
   const int n = min(kVec, C - c);  // this thread's channels; <= 0: none
+  if (Acc::kAdaptive) S = F32AdaptiveAcc::kLattice;
   const int PS = P * S;
   const float scale = lv.inv_stride[l];
   const float inv_count = 1.0f / (float)(S * S);
@@ -278,8 +311,12 @@ __device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLeve
       const float* bx = boxes + 4 * ((size_t)b * R + r);
       const float ylo = bx[1] * scale - 0.5f, yhi = bx[3] * scale - 0.5f;
       const float xlo = bx[0] * scale - 0.5f, xhi = bx[2] * scale - 0.5f;
-      const Sample ya = sample_at(ylo, yhi, P, S, 0, H), yb = sample_at(ylo, yhi, P, S, PS - 1, H);
-      const Sample xa = sample_at(xlo, xhi, P, S, 0, W), xb = sample_at(xlo, xhi, P, S, PS - 1, W);
+      // the first and the last sample taken on each axis
+      const int ny = Acc::kAdaptive ? adaptive_count(ylo, yhi, P) : S;
+      const int nx = Acc::kAdaptive ? adaptive_count(xlo, xhi, P) : S;
+      const int ly = (P - 1) * S + ny - 1, lx = (P - 1) * S + nx - 1;
+      const Sample ya = sample_at(ylo, yhi, P, S, ny, 0, H), yb = sample_at(ylo, yhi, P, S, ny, ly, H);
+      const Sample xa = sample_at(xlo, xhi, P, S, nx, 0, W), xb = sample_at(xlo, xhi, P, S, nx, lx, W);
       hit = max(ya.hi, yb.hi) >= ty0 && min(ya.lo, yb.lo) < ty0 + kTileH &&
             max(xa.hi, xb.hi) >= tx0 && min(xa.lo, xb.lo) < tx0 + kTileW;
     }
@@ -310,7 +347,9 @@ __device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLeve
         const float* bx = boxes + 4 * ((size_t)b * R + sh.keep[k0 + k]);
         const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
         const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
-        const Sample s = sample_at(lo, hi, P, S, idx, axis == 0 ? H : W);
+        const int na = Acc::kAdaptive ? adaptive_count(lo, hi, P) : S;
+        const Sample s = sample_at(lo, hi, P, S, na, idx, axis == 0 ? H : W);
+        if (idx == 0) sh.cnt[k][axis] = na;
         sh.lo[k][axis][idx] = s.lo;
         sh.hi[k][axis][idx] = s.hi;
         sh.frac[k][axis][idx] = s.frac;
@@ -323,13 +362,15 @@ __device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLeve
         const int k = t / kLists, j = t % kLists;
         const int axis = j < kTileH ? 0 : 1;
         const int cell = axis == 0 ? ty0 + j : tx0 + j - kTileH;
-        sh.n[k][j] = collect_entries(sh.lo[k][axis], sh.hi[k][axis], sh.frac[k][axis], sh.ok[k][axis], P, S, cell,
-                                     sh.bin[k][j], sh.wt[k][j]);
+        sh.n[k][j] = collect_entries(sh.lo[k][axis], sh.hi[k][axis], sh.frac[k][axis], sh.ok[k][axis], P, S,
+                                     sh.cnt[k][axis], cell, sh.bin[k][j], sh.wt[k][j]);
       }
       __syncthreads();
       if (n > 0) {
         for (int k = 0; k < kg; ++k) {  // the round's RoIs, in index order
           const float* g = cot + ((size_t)b * R + sh.keep[k0 + k]) * P * P * C + c;
+          // 1 / (S * S), or the adaptive grid's divisor n_y * n_x
+          const float scale_k = Acc::kAdaptive ? (float)(sh.cnt[k][0] * sh.cnt[k][1]) : inv_count;
 #pragma unroll
           for (int i = 0; i < kCellsPerThread; ++i) {
             const int cell = owner + i * kOwners;
@@ -347,7 +388,7 @@ __device__ __forceinline__ void owner_body(OwnerShared<Acc>& sh, const OwnerLeve
               for (int v = 0; v < kVec; ++v) dt1[v] = 0.0f;
               for (int f = 0; f < nx; ++f) {
                 float cv[kVec];
-                load_cot<kVec>(row + (size_t)sh.bin[k][tx][f] * C, n, vec, inv_count, cv);
+                load_cot<kVec, Acc::kAdaptive>(row + (size_t)sh.bin[k][tx][f] * C, n, vec, scale_k, cv);
                 const float wx = sh.wt[k][tx][f];
 #pragma unroll
                 for (int v = 0; v < kVec; ++v) dt1[v] = dt1[v] + cv[v] * wx;
@@ -384,6 +425,14 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
   owner_body<F32Acc>(*reinterpret_cast<OwnerShared<F32Acc>*>(smem), lv, boxes, levels, cot, R, C, P, S, vec);
 }
 
+__global__ void __launch_bounds__(kThreads) roi_align_bwd_adaptive_kernel(
+    OwnerLevels lv, const float* __restrict__ boxes, const int* __restrict__ levels,
+    const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  owner_body<F32AdaptiveAcc>(*reinterpret_cast<OwnerShared<F32AdaptiveAcc>*>(smem), lv, boxes, levels, cot, R, C, P,
+                             S, vec);
+}
+
 __global__ void __launch_bounds__(kThreads) roi_align_bwd_bf16_kernel(
     OwnerLevels lv, const float* __restrict__ boxes, const int* __restrict__ levels,
     const float* __restrict__ cot, int R, int C, int P, int S, bool vec) {
@@ -399,7 +448,10 @@ template <class Acc>
 int launch_owner(OwnerKernel kernel, void* const* accs, const int* hw, const float* inv_stride,
                  const float* boxes, const int* levels, const float* cot, int n_rois, int rois_per_image,
                  int C, int P, int S, void* stream) {
-  if (P < 1 || S < 1 || P * S > Acc::kMaxPS || C < 1 || n_rois <= 0 || rois_per_image <= 0)
+  // the adaptive policy takes S == -1 on its lattice, the others a static S
+  const int lattice = Acc::kAdaptive ? F32AdaptiveAcc::kLattice : S;
+  if (P < 1 || (Acc::kAdaptive ? S != -1 : S < 1) || P * lattice > Acc::kMaxPS || C < 1 || n_rois <= 0 ||
+      rois_per_image <= 0)
     return (int)cudaErrorInvalidValue;
   OwnerLevels lv;
   bool vec = C % Acc::kVec == 0 && ((uintptr_t)cot % 16) == 0;
@@ -430,8 +482,9 @@ extern "C" {
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // grads: 4 NHWC f32 level accumulators with their (h, w) and 1/stride; the
-// kernel writes every cell (no zeroing needed); P * S <= 32. Returns
-// cudaGetLastError() after the launch (0 on success).
+// kernel writes every cell (no zeroing needed); P * S <= 32, or S == -1 (the
+// adaptive grid) with P * 8 <= 56. Returns cudaGetLastError() after the
+// launch (0 on success).
 int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1, int h2,
                   int w2, int h3, int w3, float s0, float s1, float s2, float s3,
                   const float* boxes, const int* levels, const float* cot, int n_rois,
@@ -439,6 +492,9 @@ int roi_align_bwd(void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1
   void* accs[kLevels] = {g0, g1, g2, g3};
   const int hw[2 * kLevels] = {h0, w0, h1, w1, h2, w2, h3, w3};
   const float inv_stride[kLevels] = {s0, s1, s2, s3};
+  if (S == -1)
+    return launch_owner<F32AdaptiveAcc>(roi_align_bwd_adaptive_kernel, accs, hw, inv_stride, boxes, levels, cot,
+                                        n_rois, rois_per_image, C, P, S, stream);
   return launch_owner<F32Acc>(roi_align_bwd_kernel, accs, hw, inv_stride, boxes, levels, cot, n_rois,
                               rois_per_image, C, P, S, stream);
 }

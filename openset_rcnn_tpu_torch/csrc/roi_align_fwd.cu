@@ -56,6 +56,15 @@
 //     sample: val = g00*w00 + g01*w01 + g10*w10 + g11*w11, acc += val * ok
 //     over (sy, sx), then acc * (1 / (S*S)); with --fmad=false the result is
 //     bitwise the plain version's.
+//   * The adaptive grid (S == -1, TPU.ROI_SAMPLING_RATIO -1: the gather
+//     path's, openset_rcnn_tpu/ops/roi_align.py:93-94, 124-135, 188-193) is
+//     a third instantiation of the generic loop: per RoI and axis
+//     n = clip(ceil(bin extent), 1, 8) samples a bin at p + (j + 0.5) / n,
+//     on a lattice of 8 a bin (so up to 56 a side); only the n_y x n_x
+//     active samples are visited, and the sum is divided by n_y * n_x (a
+//     true division, as the plain version's), so it too is bitwise the plain
+//     version's. A bin takes 1 to 64 samples where the static grid takes 4;
+//     the bytes, and so the bound, do not change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +73,8 @@ namespace {
 
 constexpr int kLevels = 4;
 constexpr int kMaxSamples = 32;  // out_size * sampling_ratio per axis
+constexpr int kLattice = 8;      // the adaptive grid's samples per bin axis at most
+constexpr int kMaxAdaptive = 56;  // out_size * kLattice per axis
 constexpr int kMaxThreads = 512;
 
 template <typename In>
@@ -160,20 +171,29 @@ __device__ __forceinline__ void add_sample(float* acc, const Raw& g00, const Raw
   }
 }
 
+// the adaptive grid's samples per bin on the axis [lo, hi]: ceil of the bin's
+// extent, clipped to [1, kLattice] (the gather path's n_y, n_x)
+__device__ __forceinline__ int adaptive_count(float lo, float hi, int P) {
+  return (int)fminf(fmaxf(ceilf((hi - lo) / (float)P), 1.0f), (float)kLattice);
+}
+
 // kP, kS > 0: compile-time grid (the config's (7, 2)), the sample loops
-// unrolled; kP == kS == 0: the generic instantiation, runtime (P, S).
-template <typename In, typename Out, int kP, int kS>
+// unrolled; kP == kS == 0: the generic instantiation, runtime (P, S);
+// kAdaptive: the generic loop over the adaptive grid's per-RoI counts on a
+// lattice of S = kLattice.
+template <typename In, typename Out, int kP, int kS, bool kAdaptive = false>
 __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
     Levels<In> lv, const float* __restrict__ boxes, const int* __restrict__ levels, int R, int C,
     int P_rt, int S_rt, int groups, int n_groups, bool vec, Out* __restrict__ out) {
   constexpr int N = Vec<In>::N;
-  __shared__ int s_lo[2][kMaxSamples];  // [axis][sample]: floor neighbour
-  __shared__ int s_hi[2][kMaxSamples];  // min(floor + 1, extent - 1)
-  __shared__ float s_frac[2][kMaxSamples];
-  __shared__ float s_ok[2][kMaxSamples];  // 1 inside (-1, extent), else 0
+  constexpr int kAxis = kAdaptive ? kMaxAdaptive : kMaxSamples;
+  __shared__ int s_lo[2][kAxis];  // [axis][sample]: floor neighbour
+  __shared__ int s_hi[2][kAxis];  // min(floor + 1, extent - 1)
+  __shared__ float s_frac[2][kAxis];
+  __shared__ float s_ok[2][kAxis];  // 1 inside (-1, extent), else 0
 
   const int P = kP > 0 ? kP : P_rt;
-  const int S = kS > 0 ? kS : S_rt;
+  const int S = kAdaptive ? kLattice : kS > 0 ? kS : S_rt;
   const int roi = blockIdx.x;
   const int b = roi / R;
   const int l = levels[roi];
@@ -181,6 +201,14 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
   const int W = lv.w[l];
   const int PS = P * S;
   const int t = threadIdx.x;
+  // samples per bin axis: S, or the RoI's adaptive counts
+  int n_y = S, n_x = S;
+  if (kAdaptive) {
+    const float scale = lv.inv_stride[l];
+    const float* bx = boxes + 4 * (size_t)roi;
+    n_y = adaptive_count(bx[1] * scale - 0.5f, bx[3] * scale - 0.5f, P);
+    n_x = adaptive_count(bx[0] * scale - 0.5f, bx[2] * scale - 0.5f, P);
+  }
 
   for (int i = t; i < 2 * PS; i += blockDim.x) {
     const int axis = i < PS ? 0 : 1;  // 0: y, 1: x
@@ -190,7 +218,7 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
     const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
     const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
     const float bin = (hi - lo) / (float)P;
-    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
+    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)(axis == 0 ? n_y : n_x);
     float v = lo + in_bins * bin;
     const float ext = (float)(axis == 0 ? H : W);
     s_ok[axis][idx] = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
@@ -218,12 +246,12 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
 #pragma unroll
     for (int v = 0; v < N; ++v) acc[v] = 0.0f;
 #pragma unroll
-    for (int sy = 0; sy < S; ++sy) {
+    for (int sy = 0; sy < n_y; ++sy) {
       const int iy = py * S + sy;
       const In* r0 = f + (size_t)s_lo[0][iy] * W * C;
       const In* r1 = f + (size_t)s_hi[0][iy] * W * C;
 #pragma unroll
-      for (int sx = 0; sx < S; ++sx) {
+      for (int sx = 0; sx < n_x; ++sx) {
         const int ix = px * S + sx;
         const size_t x0 = (size_t)s_lo[1][ix] * C, x1 = (size_t)s_hi[1][ix] * C;
         add_sample<N>(acc, load_raw(r0 + x0, n, vec), load_raw(r0 + x1, n, vec), load_raw(r1 + x0, n, vec),
@@ -231,8 +259,14 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
       }
     }
     float res[N];
+    if (kAdaptive) {
+      const float count = (float)(n_y * n_x);
 #pragma unroll
-    for (int v = 0; v < N; ++v) res[v] = acc[v] * inv_count;
+      for (int v = 0; v < N; ++v) res[v] = acc[v] / count;
+    } else {
+#pragma unroll
+      for (int v = 0; v < N; ++v) res[v] = acc[v] * inv_count;
+    }
     store_vals<N>(o + (size_t)bin * C, res, n, vec);
   }
 }
@@ -241,9 +275,12 @@ template <typename In, typename Out>
 int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h0, int w0, int h1,
            int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
            const float* boxes, const int* levels, int n_rois, int rois_per_image, int C, int P,
-           int S, void* out, void* stream) {
+           int S, bool adaptive_ok, void* out, void* stream) {
   constexpr int N = Vec<In>::N;
-  if (P < 1 || S < 1 || P * S > kMaxSamples || n_rois <= 0 || C < 1) return (int)cudaErrorInvalidValue;
+  const bool adaptive = S == -1;
+  if (adaptive ? !adaptive_ok || P < 1 || P * kLattice > kMaxAdaptive : P < 1 || S < 1 || P * S > kMaxSamples)
+    return (int)cudaErrorInvalidValue;
+  if (n_rois <= 0 || C < 1) return (int)cudaErrorInvalidValue;
   Levels<In> lv;
   lv.feat[0] = (const In*)f0;
   lv.feat[1] = (const In*)f1;
@@ -262,7 +299,10 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h
   if (workers > P) workers = P;
   const int threads = groups * workers;
   cudaStream_t st = (cudaStream_t)stream;
-  if (fixed)
+  if (adaptive)
+    roi_align_fwd_kernel<In, Out, 0, 0, true><<<n_rois, threads, 0, st>>>(
+        lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
+  else if (fixed)
     roi_align_fwd_kernel<In, Out, 7, 2><<<n_rois, threads, 0, st>>>(
         lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
   else
@@ -278,14 +318,14 @@ extern "C" {
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // K1: feats are 4 NHWC bf16 level pointers with their (h, w) and 1/stride;
-// the output is f32. Returns cudaGetLastError() after the launch (0 on
-// success).
+// the output is f32; S == -1 is the adaptive grid. Returns
+// cudaGetLastError() after the launch (0 on success).
 int roi_align_fwd(const void* f0, const void* f1, const void* f2, const void* f3, int h0,
                   int w0, int h1, int w1, int h2, int w2, int h3, int w3, float s0, float s1,
                   float s2, float s3, const float* boxes, const int* levels, int n_rois,
                   int rois_per_image, int C, int P, int S, float* out, void* stream) {
   return launch<__nv_bfloat16, float>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2,
-                                      s3, boxes, levels, n_rois, rois_per_image, C, P, S, out,
+                                      s3, boxes, levels, n_rois, rois_per_image, C, P, S, true, out,
                                       stream);
 }
 
@@ -299,9 +339,9 @@ int roi_align_window_fwd(const void* f0, const void* f1, const void* f2, const v
   if (bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3,
                                                 s0, s1, s2, s3, boxes, levels, n_rois,
-                                                rois_per_image, C, P, S, out, stream);
+                                                rois_per_image, C, P, S, false, out, stream);
   return launch<float, float>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2, s3,
-                              boxes, levels, n_rois, rois_per_image, C, P, S, out, stream);
+                              boxes, levels, n_rois, rois_per_image, C, P, S, false, out, stream);
 }
 
 }  // extern "C"

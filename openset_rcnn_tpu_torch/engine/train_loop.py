@@ -1,13 +1,23 @@
-"""Evaluation orchestration: the model's class-id maps from the dataset
-catalog, the evaluator of a dataset, and ``do_test``.
+"""Training and evaluation orchestration: the model's class-id maps from
+the dataset catalog, the evaluator of a dataset, ``do_test`` and
+``do_train``.
 
-Port of the eval half of ``openset_rcnn_tpu/engine/train_loop.py``
-(``_known_dataset_meta :42``, ``build_model_spec :66``, ``get_evaluator
-:96``, ``shard_eval_records :144``, ``do_test :152-240``). The training
-loop (``do_train``) comes with the engine slice of the port.
+Port of ``openset_rcnn_tpu/engine/train_loop.py`` (``_known_dataset_meta
+:42``, ``build_model_spec :66``, ``load_train_records :89``,
+``get_evaluator :96``, ``shard_eval_records :144``, ``do_test :152-240``,
+``do_train :243-417``). ``do_train`` keeps the JAX loop's semantics: a
+negative ``SEED`` draws a fresh seed, the loader's seed is ``max(SEED, 0)``,
+metrics are written at every 20th iteration, at ``MAX_ITER`` and at the
+first iteration of a run, a checkpoint every ``CHECKPOINT_PERIOD`` and at
+the end, ``do_test`` every ``TEST.EVAL_PERIOD`` but at ``MAX_ITER``. A
+resumed run restores step, parameters and momentum, and its loader starts
+again at epoch 0, as JAX's does.
 
-``TPU.EVAL_MESH`` is read by the JAX package only: on one device it is a
-no-op there too, and multi-process runs shard records per process here as
+One device only: data-parallel training (``TPU.MESH_DATA`` or
+``MESH_MODEL`` other than 1, or a ``torch.distributed`` group of more than
+one process) comes with DDP (ROADMAP.md queue A item 5) and raises until
+then. ``TPU.EVAL_MESH`` is read by the JAX package only: on one device it is
+a no-op there too, and multi-process runs shard records per process here as
 there.
 """
 from __future__ import annotations
@@ -19,7 +29,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..data import DatasetCatalog, DetectionTransform, EvalLoader, MetadataCatalog
+from ..data import DatasetCatalog, DetectionTransform, EvalLoader, MetadataCatalog, TrainLoader
 
 logger = logging.getLogger(__name__)
 
@@ -69,6 +79,13 @@ def class_id_table(cfg, dataset_name: Optional[str] = None) -> Optional[np.ndarr
         dataset_name = cfg.DATASETS.TEST[0]
     known_ids, contig = known_dataset_meta(cfg, dataset_name)
     return np.asarray(sorted(contig[i] for i in known_ids))
+
+
+def load_train_records(cfg) -> List[dict]:
+    records = []
+    for name in cfg.DATASETS.TRAIN:
+        records.extend(DatasetCatalog.get(name))
+    return records
 
 
 def get_evaluator(cfg, dataset_name: str, eval_type: str = "openset"):
@@ -139,6 +156,18 @@ def build_test_transform(cfg) -> DetectionTransform:
     )
 
 
+def build_train_transform(cfg) -> DetectionTransform:
+    return DetectionTransform(
+        min_sizes=tuple(cfg.INPUT.MIN_SIZE_TRAIN),
+        max_size=cfg.INPUT.MAX_SIZE_TRAIN,
+        bucket_hw=tuple(cfg.TPU.TRAIN_BUCKET),
+        max_gt=cfg.TPU.MAX_GT_PER_IMAGE,
+        flip=cfg.INPUT.RANDOM_FLIP == "horizontal",
+        fmt=cfg.INPUT.FORMAT,
+        interp=cfg.TPU.RESIZE_INTERP,
+    )
+
+
 def do_test(cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None, datasets: Optional[Sequence[str]] = None,
             eval_type: str = "openset", device: Optional[Union[str, torch.device]] = None, seed: int = 0,
             transform: Optional[DetectionTransform] = None) -> Dict[str, Dict[str, float]]:
@@ -186,3 +215,128 @@ def do_test(cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None, datase
         logger.info("evaluating %s (%d images)", name, len(records))
         results[name] = inference_on_dataset(predictor, loader, evaluator, fused=cfg.TPU.EVAL_FUSED)
     return results
+
+
+DDP_ITEM = "data-parallel training (DDP over NCCL) is not ported yet: ROADMAP.md queue A item 5"
+
+
+def check_single_device(cfg) -> None:
+    """``do_train`` runs on one device: a data or model mesh axis other than
+    1, or a process group of more than one process, raises."""
+    from ..parallel import num_processes
+
+    if cfg.TPU.MESH_DATA != 1 or cfg.TPU.MESH_MODEL != 1:
+        raise NotImplementedError(f"TPU.MESH_DATA {cfg.TPU.MESH_DATA}, TPU.MESH_MODEL {cfg.TPU.MESH_MODEL}: "
+                                  f"{DDP_ITEM}")
+    if num_processes() > 1:
+        raise NotImplementedError(f"a process group of {num_processes()} processes: {DDP_ITEM}")
+
+
+def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool = False,
+             device: Optional[Union[str, torch.device]] = None):
+    """Train the model of ``cfg`` on ``cfg.DATASETS.TRAIN`` from a seeded
+    random init, ``MODEL.WEIGHTS`` or (``resume``) the latest checkpoint of
+    ``OUTPUT_DIR``, to ``SOLVER.MAX_ITER``; returns the ``TrainState``.
+
+    Args:
+        profile_steps: if > 0, a ``torch.profiler`` trace of that many steps
+            (after 5 warm-up steps) into ``OUTPUT_DIR/profile``.
+        debug_nans: run under ``torch.autograd.detect_anomaly``, which names
+            the op whose backward produced a NaN (much slower; debug only).
+        device: the GPU unless given (``"cpu"`` runs the plain versions of
+            the kernels); with no GPU and no device it raises.
+    """
+    import contextlib
+    import time
+
+    from ..data import device_prefetch, register_builtin_datasets
+    from ..device import resolve_device
+    from .checkpoint import Checkpointer
+    from .events import EventWriter
+    from .train_state import Trainer
+
+    device = resolve_device(device)
+    if cfg.SEED < 0:
+        # d2 semantics: negative seed -> fresh random seed per run
+        seed = (int(time.time() * 1000) ^ os.getpid()) % (2**31)
+        cfg = cfg.clone()
+        cfg.SEED = seed
+        cfg.freeze()
+        logger.info("using random seed %d", seed)
+    check_single_device(cfg)
+    register_builtin_datasets()
+    seed = max(cfg.SEED, 0)
+    trainer = Trainer(cfg, device, seed=seed)
+    checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+    checkpointer.resume_or_load(trainer.state, cfg.MODEL.WEIGHTS, resume)
+    start_iter = trainer.state.step
+
+    loader = TrainLoader(
+        load_train_records(cfg),
+        build_train_transform(cfg),
+        batch_size=cfg.SOLVER.IMS_PER_BATCH,
+        seed=seed,
+        filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+        num_workers=cfg.DATALOADER.NUM_WORKERS,
+    )
+    writer = EventWriter(cfg.OUTPUT_DIR)
+    max_iter = cfg.SOLVER.MAX_ITER
+    ckpt_period = cfg.SOLVER.CHECKPOINT_PERIOD
+    eval_period = cfg.TEST.EVAL_PERIOD
+    logger.info("starting training at iter %d (max %d)", start_iter, max_iter)
+
+    profile_dir = os.path.join(cfg.OUTPUT_DIR, "profile")
+    profile_start = start_iter + 5 if profile_steps > 0 else -1
+    profiler = None
+    anomaly = torch.autograd.detect_anomaly(check_nan=True) if debug_nans else contextlib.nullcontext()
+
+    it = start_iter
+    with anomaly:
+        for batch, meta in device_prefetch(iter(loader), device):
+            if it >= max_iter:
+                break
+            if it == profile_start and profiler is None:
+                profiler = _start_profiler(device)
+            metrics = trainer.step(batch)
+            it = trainer.state.step
+            if profiler is not None and it >= profile_start + profile_steps:
+                _stop_profiler(profiler, device, profile_dir)
+                profiler = None
+
+            if it % 20 == 0 or it == max_iter or it == start_iter + 1:
+                host_metrics = {k: float(v) for k, v in metrics.items()}
+                if not np.isfinite(host_metrics["total_loss"]):
+                    raise FloatingPointError(f"non-finite loss at iter {it}: {host_metrics}")
+                writer.write(it, host_metrics)
+
+            if ckpt_period and it % ckpt_period == 0:
+                checkpointer.save(trainer.state, it)
+            if eval_period and it % eval_period == 0 and it != max_iter:
+                results = do_test(cfg, trainer.model.state_dict(), device=device, seed=seed)
+                for ds, res in results.items():
+                    writer.write(it, {f"{ds}/{k}": v for k, v in res.items() if np.isscalar(v)})
+        if profiler is not None:
+            _stop_profiler(profiler, device, profile_dir)
+
+    checkpointer.save(trainer.state, it)
+    writer.close()
+    return trainer.state
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)

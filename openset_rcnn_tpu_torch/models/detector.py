@@ -23,6 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.anchors import fpn_anchors
 from ..ops.box_transforms import Box2BoxTransform, Box2BoxTransformLinear
+from ..ops.roi_align import ADAPTIVE
 from ..structures import ImageBatch, RawDetections
 from .fpn import FPN
 from .resnet import ResNet
@@ -199,8 +200,10 @@ class OpensetRCNN(nn.Module):
     The port runs the R50-FPN trunk in float32 or bfloat16
     (``TPU.DTYPE``; bf16 covers the trunk, FPN, RPN head and box head, with
     parameters, losses and the other heads in f32, as the JAX module) with
-    the static RoIAlign grid; the adaptive grid, ``TPU.REMAT`` and the
-    Swin/ViT backbones are later slices and raise here.
+    the static RoIAlign grid or the adaptive one (``TPU.ROI_SAMPLING_RATIO
+    -1``, which pools at the gather levels with f32 backward accumulators,
+    see ``pool_features``); ``TPU.REMAT`` and the Swin/ViT backbones are
+    later slices and raise here.
     """
 
     def __init__(self, spec: ModelSpec):
@@ -209,8 +212,8 @@ class OpensetRCNN(nn.Module):
             raise NotImplementedError(f"backbone {spec.backbone_name} is not ported yet")
         if spec.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
-        if spec.roi_sampling_ratio < 1:
-            raise NotImplementedError("the adaptive RoIAlign grid (ROI_SAMPLING_RATIO -1) is not ported yet")
+        if spec.roi_sampling_ratio < 1 and spec.roi_sampling_ratio != ADAPTIVE:
+            raise ValueError(f"TPU.ROI_SAMPLING_RATIO must be >= 1 or -1 (adaptive), not {spec.roi_sampling_ratio}")
         if spec.remat:
             raise NotImplementedError("TPU.REMAT (recomputing the ResNet blocks in the backward, "
                                       "openset_rcnn_tpu/models/resnet.py:104, 116) is not ported yet: "

@@ -31,7 +31,7 @@ from ..ops.box_transforms import Box2BoxTransform
 from ..ops.boxes import clip_boxes, pairwise_iou
 from ..ops.losses import dense_box_regression_loss, masked_sum, smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match
-from ..ops.roi_align import RoIAlignFunction, assign_levels, assign_levels_window_fit
+from ..ops.roi_align import ADAPTIVE, RoIAlignFunction, assign_levels, assign_levels_window_fit
 from ..ops.sampling import sample_balanced_indices
 from ..structures import GroundTruth, Proposals, RawDetections, SampledRois
 
@@ -314,11 +314,21 @@ def pool_features(
     again (``:104``), so a box that the window-fit rule moved up a level
     sends its gradient to a level its forward never read. The port keeps the
     true gradient (``tests/test_torch_port_train_ops.py``
-    ``::test_xla_backward_follows_the_forward_levels``)."""
+    ``::test_xla_backward_follows_the_forward_levels``).
+
+    The adaptive grid (``sampling_ratio == -1``, both ``*_parity.yaml``
+    configs) overrides both keys, as JAX does
+    (``openset_rcnn_tpu/ops/roi_align.py:387-388``, where only the gather
+    formulation expresses it): it pools at the gather levels whatever
+    ``impl`` says, and its backward sums into f32 accumulators (K2's f32
+    mode) whatever ``bwd_impl`` says (``tests/test_torch_port_adaptive.py``
+    ``::test_pool_features_adaptive_overrides_impl_and_bwd_impl``)."""
     if impl not in ROI_ALIGN_IMPLS:
         raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {impl!r}")
     if bwd_impl not in ROI_ALIGN_BWD_ACC:
         raise ValueError(f"TPU.ROI_ALIGN_BWD must be one of {tuple(ROI_ALIGN_BWD_ACC)}, not {bwd_impl!r}")
+    if sampling_ratio == ADAPTIVE:
+        impl, bwd_impl = "gather", "pallas"
     feats = [fpn_feats[f].to(torch.bfloat16).permute(0, 2, 3, 1).contiguous() for f in in_features]
     if impl == "pallas":
         levels = assign_levels_window_fit(boxes, strides)

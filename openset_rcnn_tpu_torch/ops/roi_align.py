@@ -34,6 +34,17 @@ RoI is pooled with exact bilinear RoIAlign from the FPN level it is given.
   accumulators to the features' dtype, as the JAX VJP does, and gives the
   boxes no gradient.
 
+* The adaptive grid (``sampling_ratio == -1``, ``TPU.ROI_SAMPLING_RATIO
+  -1``, both ``*_parity.yaml`` configs) is the gather path's
+  (``openset_rcnn_tpu/ops/roi_align.py:93-94, 124-135, 188-193``): per RoI
+  and axis ``n = clip(ceil(extent / P), 1, 8)`` samples a bin at
+  ``p + (j + 0.5) / n`` bin units, on a masked 8-lattice; a bin's value is
+  the sum of its samples over ``n_y * n_x`` (clipped samples add 0 and stay
+  in the count). The plain versions cut each chunk's lattice to its largest
+  count: the lattice points beyond it are masked for every RoI of the
+  chunk, and each sum still adds the active samples in their order. K1 and
+  K2's f32 mode take it; K2's bf16 mode and K5 do not.
+
 Layout: features are per-level NHWC (B, H_l, W_l, C); boxes (B, R, 4) xyxy
 f32 in image coordinates; the output is (B, R, P, P, C), the JAX package's
 layout, so a flatten of the last three dims matches its ``fc1``.
@@ -51,6 +62,10 @@ from . import _build
 # budget of the JAX package's GATHER_CHUNK_BUDGET.
 PLAIN_CHUNK = 512
 NUM_LEVELS = 4
+# sampling_ratio of the adaptive grid, and the side of its lattice per bin
+# (ADAPTIVE_MAX_RATIO of the JAX gather path)
+ADAPTIVE = -1
+ADAPTIVE_MAX_RATIO = 8
 # The TPU kernels' window-fit bound: a RoI's longer side spans at most this
 # many cells of its level (roi_align_kernel.py:33, with a 56x64 window).
 MAX_EXTENT = 50.0
@@ -88,21 +103,38 @@ def assign_levels_window_fit(boxes: torch.Tensor, strides: Sequence[int]) -> tor
 
 def _sample_axis(lo, hi, extent, P: int, S: int):
     """Sample geometry along one axis for a chunk of RoIs, as the gather path
-    computes it. lo/hi/extent: (n,) f32. Returns (n, P*S) tensors:
-    floor neighbour, upper neighbour (int64), fraction, in-range mask (f32)."""
+    computes it. lo/hi/extent: (n,) f32; S the sampling ratio (``ADAPTIVE``:
+    the adaptive grid). Returns (n, P*L) tensors on the lattice of L
+    samples a bin (the static ratio, or the chunk's largest adaptive count):
+    floor neighbour, upper neighbour (int64), fraction, in-range (and,
+    adaptive, active) mask (f32); the (n,) f32 count of samples a bin takes
+    on this axis; and L."""
     # Divisions take a tensor divisor: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, one rounding off the true quotient
     # that the kernel and the JAX gather path compute.
-    idx = torch.arange(P * S, device=lo.device)
-    in_bins = (idx // S).to(torch.float32) + ((idx % S).to(torch.float32) + 0.5) / torch.full_like(lo[:1], S)
     bin_size = (hi - lo) / torch.full_like(lo, P)
-    v = lo[:, None] + in_bins[None, :] * bin_size[:, None]
+    if S == ADAPTIVE:
+        n = torch.clamp(torch.ceil(bin_size), 1.0, float(ADAPTIVE_MAX_RATIO))
+        L = int(n.nan_to_num(float(ADAPTIVE_MAX_RATIO)).max())  # a NaN box keeps the whole lattice, masked
+    else:
+        L = S
+    idx = torch.arange(P * L, device=lo.device)
+    j = (idx % L).to(torch.float32)
+    if S == ADAPTIVE:
+        in_bins = (idx // L).to(torch.float32) + (j + 0.5) / n[:, None]
+    else:
+        n = torch.full_like(lo, S)
+        in_bins = ((idx // L).to(torch.float32) + (j + 0.5) / n[:1])[None, :]
+    v = lo[:, None] + in_bins * bin_size[:, None]
     ext = extent[:, None]
-    ok = ((v > -1.0) & (v < ext)).to(torch.float32)
+    ok = (v > -1.0) & (v < ext)
+    if S == ADAPTIVE:
+        ok = ok & (j[None, :] < n[:, None])
+    ok = ok.to(torch.float32)
     v = torch.minimum(torch.clamp(v, min=0.0), ext - 1.0)
     v0 = torch.floor(v)
     v1 = torch.minimum(v0 + 1, ext - 1.0)
-    return v0.to(torch.int64), v1.to(torch.int64), v - v0, ok
+    return v0.to(torch.int64), v1.to(torch.int64), v - v0, ok, n, L
 
 
 def roi_align_plain(
@@ -123,10 +155,28 @@ def roi_align_plain(
     flat = torch.cat([f.reshape(B, -1, C) for f in feats], dim=1).reshape(-1, C)
     out = torch.empty((B * R, P, P, C), dtype=torch.float32, device=boxes.device)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
-    for sl, n, neighbours, ok in _chunk_geometry(boxes, levels, level_hw, strides, P, S, chunk):
-        val = sum(flat[idx.reshape(-1)].reshape(n, P * S, P * S, C).float() * w[..., None] for idx, w in neighbours)
-        out[sl] = (val * ok[..., None]).reshape(n, P, S, P, S, C).mean(dim=(2, 4))
+    for sl, n, neighbours, ok, count, (Ly, Lx) in _chunk_geometry(boxes, levels, level_hw, strides, P, S,
+                                                                  _chunk(chunk, S)):
+        val = sum(flat[idx.reshape(-1)].reshape(n, P * Ly, P * Lx, C).float() * w[..., None]
+                  for idx, w in neighbours)
+        val = (val * ok[..., None]).reshape(n, P, Ly, P, Lx, C)
+        if S != ADAPTIVE:
+            out[sl] = val.mean(dim=(2, 4))
+            continue
+        # the kernel's order: sample after sample, row-major; inactive
+        # samples add 0
+        acc = torch.zeros((n, P, P, C), dtype=torch.float32, device=boxes.device)
+        for sy in range(Ly):
+            for sx in range(Lx):
+                acc = acc + val[:, :, sy, :, sx]
+        out[sl] = acc / count[:, None, None, None]
     return out.reshape(B, R, P, P, C)
+
+
+def _chunk(chunk: int, S: int) -> int:
+    """RoIs per step: the adaptive lattice has 16x the samples of the static
+    2x2 grid, so 16x fewer RoIs (at least 32, as ``_gather_chunked``)."""
+    return max(32, chunk // 16) if S == ADAPTIVE else chunk
 
 
 def roi_align_window_plain(
@@ -145,7 +195,9 @@ def roi_align_window_plain(
 def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int):
     """Per chunk of RoIs, the sample geometry of the gather path: (slice of
     the flattened RoIs, RoI count, the 4 bilinear neighbours as (flat row
-    index (n, PS, PS), weight (n, PS, PS)), in-range mask (n, PS, PS)).
+    index (n, P Ly, P Lx), weight (n, P Ly, P Lx)), in-range mask
+    (n, P Ly, P Lx), the (n,) f32 samples a bin averages, the lattice's
+    (Ly, Lx) samples a bin axis).
     Flat rows index one (B * sum_l H_l W_l) buffer, image-major, then level."""
     B, R = boxes.shape[:2]
     dev = boxes.device
@@ -164,8 +216,8 @@ def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int
         lvl = flat_levels[sl]
         scale = inv_strides[lvl]
         H, W = hs[lvl], ws[lvl]
-        y0, y1, ly, oky = _sample_axis(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P, S)
-        x0, x1, lx, okx = _sample_axis(bx[:, 0] * scale - 0.5, bx[:, 2] * scale - 0.5, W, P, S)
+        y0, y1, ly, oky, ny, Ly = _sample_axis(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P, S)
+        x0, x1, lx, okx, nx, Lx = _sample_axis(bx[:, 0] * scale - 0.5, bx[:, 2] * scale - 0.5, W, P, S)
         base = (image[sl] * per_image + offsets[lvl])[:, None, None]
         Wl = W.long()[:, None, None]
 
@@ -178,7 +230,7 @@ def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int
             (idx(y1, x0), ly[:, :, None] * (1 - lx)[:, None, :]),
             (idx(y1, x1), ly[:, :, None] * lx[:, None, :]),
         )
-        yield sl, bx.shape[0], neighbours, oky[:, :, None] * okx[:, None, :]
+        yield sl, bx.shape[0], neighbours, oky[:, :, None] * okx[:, None, :], ny * nx, (Ly, Lx)
 
 
 # both entry points of csrc/roi_align_fwd.cu: one library, one signature table
@@ -198,7 +250,19 @@ _SIGNATURE = {
 }
 
 
-def _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.bfloat16,)):
+def _check_grid(P: int, S: int, adaptive: bool) -> None:
+    """The kernels take a static grid with ``P * S <= 32``; K1 and K2's f32
+    mode (``adaptive``) also the adaptive grid, on a lattice of ``P * 8 <=
+    56`` samples a side."""
+    if S == ADAPTIVE and adaptive:
+        if P < 1 or P * ADAPTIVE_MAX_RATIO > 56:
+            raise ValueError("the adaptive grid takes out_size * 8 <= 56")
+    elif S < 1 or P * S > 32:
+        raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32"
+                         + ("" if adaptive else ", not the adaptive grid"))
+
+
+def _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.bfloat16,), adaptive=True):
     if len(feats) != NUM_LEVELS or len(strides) != NUM_LEVELS:
         raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(feats)}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
@@ -217,8 +281,7 @@ def _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.bfloat
             raise ValueError("features, boxes and levels must be on one device")
         if not t.is_contiguous():
             raise ValueError("features (NHWC), boxes and levels must be contiguous")
-    if S < 1 or P * S > 32:
-        raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
+    _check_grid(P, S, adaptive)
 
 
 def _launch_fwd(fn: str, feats, boxes, levels, strides, P, S, out, *dtype_flag):
@@ -243,9 +306,12 @@ def roi_align(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """RoIAlignV2 forward (K1): (B, R, P, P, C) f32 from NHWC bf16 P2-P5,
-    each RoI from the level in ``levels``.
+    each RoI from the level in ``levels``; ``sampling_ratio`` static, or
+    ``ADAPTIVE``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``roi_align.launches`` counts the static grid's launches,
+    ``roi_align.adaptive_launches`` the adaptive grid's.
     """
     if boxes.device.type == "cpu":
         return roi_align_plain(feats, boxes, levels, strides, out_size, sampling_ratio)
@@ -258,11 +324,15 @@ def roi_align(
     if B * R == 0:
         return out
     _launch_fwd("roi_align_fwd", feats, boxes, levels, strides, P, S, out)
-    roi_align.launches += 1
+    if S == ADAPTIVE:
+        roi_align.adaptive_launches += 1
+    else:
+        roi_align.launches += 1
     return out
 
 
-roi_align.launches = 0  # kernel launches since the last reset
+roi_align.launches = 0  # kernel launches since the last reset, static grid
+roi_align.adaptive_launches = 0  # and adaptive grid
 
 
 def roi_align_window(
@@ -284,7 +354,7 @@ def roi_align_window(
         raise ValueError(f"roi_align_window runs on CPU or CUDA tensors, not {boxes.device}")
     P, S = out_size, sampling_ratio
     levels = assign_levels_window_fit(boxes, strides)
-    _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.float32, torch.bfloat16))
+    _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.float32, torch.bfloat16), adaptive=False)
     B, R = boxes.shape[:2]
     out = torch.empty((B, R, P, P, feats[0].shape[-1]), dtype=feats[0].dtype, device=boxes.device)
     if B * R == 0:
@@ -329,7 +399,10 @@ def roi_align_bwd_plain(
 
     f64: the f32 sums in float64, an oracle for the sum-order error of the
     f32 versions (an f32 ``index_add_`` over tens of thousands of terms per
-    cell strays further from the exact sum than the kernel's order does)."""
+    cell strays further from the exact sum than the kernel's order does).
+
+    The adaptive grid (``sampling_ratio == ADAPTIVE``) divides each RoI's
+    cotangent by its own sample count ``n_y * n_x``, in every mode."""
     if acc_dtype == torch.bfloat16:
         return _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
     if acc_dtype not in (torch.float32, torch.float64):
@@ -341,8 +414,10 @@ def roi_align_bwd_plain(
     flat = torch.zeros((B * per_image, C), dtype=acc_dtype, device=grad.device)
     g = grad.reshape(B * R, P, P, C).to(acc_dtype)
     count = torch.full((), float(S * S), dtype=acc_dtype, device=grad.device)  # a tensor divisor, as the forward's mean
-    for sl, n, neighbours, ok in _chunk_geometry(boxes, levels, level_hw, strides, P, S, chunk):
-        gs = (g[sl] / count)[:, :, None, :, None, :].expand(n, P, S, P, S, C).reshape(n, P * S, P * S, C)
+    for sl, n, neighbours, ok, counts, (Ly, Lx) in _chunk_geometry(boxes, levels, level_hw, strides, P, S,
+                                                                   _chunk(chunk, S)):
+        gc = g[sl] / (counts.to(acc_dtype)[:, None, None, None] if S == ADAPTIVE else count)
+        gs = gc[:, :, None, :, None, :].expand(n, P, Ly, P, Lx, C).reshape(n, P * Ly, P * Lx, C)
         d = gs * ok[..., None]
         for idx, w in neighbours:
             flat.index_add_(0, idx.reshape(-1), (d * w[..., None]).reshape(-1, C))
@@ -365,9 +440,10 @@ def _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, P, S):
     flat = torch.zeros((B * per_image, C), dtype=torch.bfloat16, device=grad.device)
     g = grad.float() * (1.0 / (S * S))  # d(mean), as the TPU kernel scales the cotangent
     for r in range(R):
-        (_, n, neighbours, ok), = _chunk_geometry(boxes[:, r : r + 1], levels[:, r : r + 1], level_hw,
-                                                  strides, P, S, chunk=B)
-        gs = g[:, r][:, :, None, :, None, :].expand(n, P, S, P, S, C).reshape(n, P * S, P * S, C)
+        (_, n, neighbours, ok, counts, (Ly, Lx)), = _chunk_geometry(boxes[:, r : r + 1], levels[:, r : r + 1],
+                                                                    level_hw, strides, P, S, chunk=B)
+        gr = grad[:, r].float() / counts[:, None, None, None] if S == ADAPTIVE else g[:, r]
+        gs = gr[:, :, None, :, None, :].expand(n, P, Ly, P, Lx, C).reshape(n, P * Ly, P * Lx, C)
         d = gs * ok[..., None]
         # the round's window gradients, one f32 sum per touched cell
         idx = torch.cat([i.reshape(-1) for i, _ in neighbours])
@@ -409,8 +485,6 @@ def _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S):
             raise ValueError("grad, boxes and levels must be on one device")
         if not t.is_contiguous():
             raise ValueError("grad, boxes and levels must be contiguous")
-    if S < 1 or P * S > 32:
-        raise ValueError("the kernel takes a static sampling ratio >= 1 and out_size * sampling_ratio <= 32")
 
 
 def _launch_bwd(fn, accs, grad, boxes, levels, level_hw, strides, P, S):
@@ -439,9 +513,12 @@ def roi_align_bwd(
     (B, H_l, W_l, C) f32 accumulators from the (B, R, P, P, C) f32 cotangent,
     each RoI's f32 window gradient added once, a cell's RoIs in index order
     (so the kernel's result is deterministic). ``out_size * sampling_ratio``
-    at most 32.
+    at most 32, or the adaptive grid (``ADAPTIVE``) with ``out_size * 8`` at
+    most 56.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``roi_align_bwd.launches`` counts the static grid's launches,
+    ``roi_align_bwd.adaptive_launches`` the adaptive grid's.
     """
     if boxes.device.type == "cpu":
         return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
@@ -449,17 +526,22 @@ def roi_align_bwd(
         raise ValueError(f"roi_align_bwd runs on CPU or CUDA tensors, not {boxes.device}")
     P, S = out_size, sampling_ratio
     _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S)
+    _check_grid(P, S, adaptive=True)
     B, C = boxes.shape[0], grad.shape[-1]
     if boxes.numel() == 0:
         return [torch.zeros((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
     # the kernel writes every cell, zeros included
     accs = [torch.empty((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
     _launch_bwd("roi_align_bwd", accs, grad, boxes, levels, level_hw, strides, P, S)
-    roi_align_bwd.launches += 1
+    if S == ADAPTIVE:
+        roi_align_bwd.adaptive_launches += 1
+    else:
+        roi_align_bwd.launches += 1
     return accs
 
 
-roi_align_bwd.launches = 0  # kernel launches since the last reset
+roi_align_bwd.launches = 0  # kernel launches since the last reset, static grid
+roi_align_bwd.adaptive_launches = 0  # and adaptive grid
 
 
 def roi_align_bwd_bf16(
@@ -486,6 +568,7 @@ def roi_align_bwd_bf16(
         raise ValueError(f"roi_align_bwd_bf16 runs on CPU or CUDA tensors, not {boxes.device}")
     P, S = out_size, sampling_ratio
     _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S)
+    _check_grid(P, S, adaptive=False)
     B, C = boxes.shape[0], grad.shape[-1]
     if C % 2 or P * S > 16:
         raise ValueError(f"the bf16-accumulator kernel takes an even C (channel pairs) and "

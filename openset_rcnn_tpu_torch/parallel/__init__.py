@@ -1,9 +1,11 @@
 """Process queries and the host-object gather of multi-process evaluation.
 
-The port's counterpart of ``openset_rcnn_tpu/parallel/multihost.py:21, 65``
-(``num_processes``, ``gather_object``): single-process answers unless
-``torch.distributed`` is initialized, and then ``all_gather_object`` over the
-default group. Data-parallel training comes with the engine loop.
+The port's counterpart of ``openset_rcnn_tpu/parallel/multihost.py:17, 21,
+65`` (``is_main_process``, ``num_processes``, ``gather_object``):
+single-process answers unless ``torch.distributed`` is initialized, and then
+the default group's rank and size and ``all_gather_object`` over it.
+Data-parallel training (DDP) is not ported yet: ``do_train`` raises on a
+group of more than one process.
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ def num_processes() -> int:
 def process_index() -> int:
     dist = _group()
     return dist.get_rank() if dist else 0
+
+
+def is_main_process() -> bool:
+    return process_index() == 0
 
 
 def gather_object(obj: Any) -> List[Any]:

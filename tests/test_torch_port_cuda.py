@@ -8,6 +8,8 @@ These need an NVIDIA GPU and skip without one. On a machine with the card
 The plain versions themselves are held against the JAX package on the CPU
 (tests/test_torch_port_ops.py, tests/test_torch_port_train_ops.py).
 """
+import math
+
 import pytest
 import torch
 
@@ -107,6 +109,97 @@ def test_roi_align_kernel_rejects_what_it_does_not_take(dev):
         roi_align([f.transpose(1, 2) for f in feats], boxes, levels, STRIDES)
     with pytest.raises(ValueError, match="int32"):
         roi_align(feats, boxes, levels.long(), STRIDES)
+
+
+def adaptive_boxes(dev, B, R, hw=(256, 384), seed=0):
+    """Boxes of sides 8-800 px over a (hw) canvas, elongated ones among them,
+    so that the adaptive grid takes 1 sample a bin (tiny boxes), 2-4 and the
+    clip at 8 (long sides at their level), some across the edge."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev)
+    H, W = hw
+    side = torch.exp(math.log(8.0) + u(B, R) * math.log(100.0))
+    ar = torch.exp(u(B, R) * 2.0 - 1.0)
+    n = R // 6
+    ar[:, :n] = 6.0 + 10.0 * u(B, n)              # wide: 8 samples a bin across
+    ar[:, n : 2 * n] = 1.0 / (6.0 + 10.0 * u(B, n))  # tall
+    w, h = side * ar.sqrt(), side / ar.sqrt()
+    cx, cy = u(B, R) * W, u(B, R) * H
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    boxes[:, 2 * n : 3 * n, 2:] = boxes[:, 2 * n : 3 * n, :2] + 0.5 + u(B, n, 2)  # tiny: 1 sample a bin
+    return boxes.contiguous()
+
+
+def adaptive_counts(boxes, levels):
+    """The adaptive grid's samples per bin axis of each RoI (1 to 8)."""
+    scale = 1.0 / torch.tensor(STRIDES, dtype=torch.float32, device=boxes.device)[levels.long()]
+    ext = torch.stack([boxes[..., 3] - boxes[..., 1], boxes[..., 2] - boxes[..., 0]], -1) * scale[..., None]
+    return torch.clamp(torch.ceil(ext / torch.full_like(ext, 7.0)), 1, 8)
+
+
+@pytest.mark.parametrize("C", [256, 100])  # 100: a masked tail of the 8-channel vectors
+def test_roi_align_kernel_adaptive_matches_plain(dev, C):
+    """The adaptive grid (sampling_ratio -1): K1's third instantiation,
+    bitwise the plain version's arithmetic (held here at atol 2e-5 + rtol
+    1e-5), counted apart from the static grid's launches."""
+    feats, _ = roi_inputs(dev, 2, 8, C, seed=C)
+    boxes = adaptive_boxes(dev, 2, 300, seed=C)
+    levels = assign_levels(boxes)
+    counts = adaptive_counts(boxes, levels)
+    assert float(counts.min()) == 1.0 and float(counts.max()) == 8.0
+    before, static = roi_align.adaptive_launches, roi_align.launches
+    got = roi_align(feats, boxes, levels, STRIDES, 7, -1)
+    torch.cuda.synchronize()
+    assert (roi_align.adaptive_launches, roi_align.launches) == (before + 1, static)
+    torch.testing.assert_close(got, roi_align_plain(feats, boxes, levels, STRIDES, 7, -1), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C", [256, 98])  # 98: C % 4 != 0, scalar loads and stores
+def test_roi_align_bwd_kernel_adaptive_matches_plain(dev, C):
+    """K2 f32 on the adaptive grid against its plain version, within
+    1e-5 * max(1, max|want|), counted apart from the static grid's."""
+    feats, _ = roi_inputs(dev, 2, 8, C, seed=C)
+    boxes = adaptive_boxes(dev, 2, 300, seed=C + 1)
+    levels = assign_levels(boxes)
+    g = torch.Generator(device=dev).manual_seed(C)
+    cot = torch.randn(2, 300, 7, 7, C, generator=g, device=dev)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    before, static = roi_align_bwd.adaptive_launches, roi_align_bwd.launches
+    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+    torch.cuda.synchronize()
+    assert (roi_align_bwd.adaptive_launches, roi_align_bwd.launches) == (before + 1, static)
+    assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, -1))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered"])
+@pytest.mark.parametrize("B", [4, 16])
+def test_roi_align_bwd_kernel_adaptive_is_deterministic(dev, B, kind):
+    """K2 f32 on the adaptive grid: two launches bitwise equal."""
+    feats, _ = roi_inputs(dev, B, 8, 256, seed=30 + B)
+    boxes = adaptive_boxes(dev, B, 128, seed=31 + B) if kind == "uniform" else \
+        clustered_boxes(dev, B, 128, (256, 384), 4, 0.3, seed=32 + B)
+    levels = assign_levels(boxes)
+    g = torch.Generator(device=dev).manual_seed(B)
+    cot = torch.randn(B, 128, 7, 7, 256, generator=g, device=dev)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    first = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+    second = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert_bwd_close(first, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, -1))
+
+
+def test_adaptive_grid_only_in_k1_and_k2_f32(dev):
+    """K2's bf16 mode and K5 have no adaptive mode; the adaptive lattice
+    takes out_size * 8 <= 56."""
+    feats, boxes, levels, cot = bwd_inputs(dev, 1, 8, 32, seed=0)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    with pytest.raises(ValueError, match="not the adaptive grid"):
+        roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+    with pytest.raises(ValueError, match="not the adaptive grid"):
+        roi_align_window(feats, boxes, STRIDES, 7, -1)
+    with pytest.raises(ValueError, match="56"):
+        roi_align(feats, boxes, levels, STRIDES, 8, -1)
 
 
 def nms_inputs(dev, B, N, seed=0):

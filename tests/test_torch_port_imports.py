@@ -1,6 +1,8 @@
-"""The PyTorch port imports neither JAX nor the JAX package, nor ``cv2`` or
-``PIL`` (the GPU machine has neither): the transforms import them inside the
-functions that decode and resize."""
+"""The PyTorch port imports neither JAX nor the JAX package, nor ``cv2``,
+``PIL`` or ``tensorboardX`` (the GPU machine need not have them): the
+transforms import the first two inside the functions that decode and
+resize, ``EventWriter`` the third when it opens its writer. Every module is
+imported, the training CLI ``openset_rcnn_tpu_torch.train`` among them."""
 import subprocess
 import sys
 from pathlib import Path
@@ -17,7 +19,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "flax" or m.startswith("flax.")
              or m == "openset_rcnn_tpu" or m.startswith("openset_rcnn_tpu.")
-             or m == "cv2" or m.startswith("cv2.") or m == "PIL" or m.startswith("PIL."))
+             or m == "cv2" or m.startswith("cv2.") or m == "PIL" or m.startswith("PIL.")
+             or m == "tensorboardX" or m.startswith("tensorboardX."))
+assert {"openset_rcnn_tpu_torch.train", "openset_rcnn_tpu_torch.engine.checkpoint",
+        "openset_rcnn_tpu_torch.engine.events"} <= set(names)
 print(len(names))
 print(",".join(bad))
 """

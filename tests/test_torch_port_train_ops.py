@@ -613,9 +613,12 @@ def test_spec_id_map_matches_jax_and_unported_options_raise():
     assert spec.id_map == tuple(int(x) for x in want) and spec.freeze_at == 2
     cfg.TPU.ROI_ALIGN_BWD = "pallas_bf16"  # ported: bf16 accumulators
     assert port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg)).spec.roi_align_bwd == "pallas_bf16"
-    cfg.TPU.ROI_SAMPLING_RATIO = -1
-    with pytest.raises(NotImplementedError, match="adaptive"):
+    cfg.TPU.ROI_SAMPLING_RATIO = -1  # ported: the adaptive grid builds
+    assert port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg)).spec.roi_sampling_ratio == -1
+    cfg.TPU.ROI_SAMPLING_RATIO = 0
+    with pytest.raises(ValueError, match="adaptive"):
         port_det.OpensetRCNN(port_det.ModelSpec.from_cfg(cfg))
+    cfg.TPU.ROI_SAMPLING_RATIO = 2
     # ported: OPENDET_BENCHMARK false takes a known-id map (GraspNet's, from
     # the catalog, is held against JAX in test_torch_port_eval_path)
     cfg.OPENDET_BENCHMARK = False

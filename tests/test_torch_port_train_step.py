@@ -56,10 +56,12 @@ TRUNK_TOL = {"stock": 6e-2, "f32_acc": 1e-2}  # trunk gradients, relative; see t
 HEADS = ("rpn_head.", "box_head.", "box_predictor.", "pln.", "classifier.")
 
 
-def load_cfg(get_default_cfg):
+def load_cfg(get_default_cfg, config=CONFIG, roi_batch=None):
     cfg = get_default_cfg()
-    cfg.merge_from_file(str(CONFIG))
+    cfg.merge_from_file(str(config))
     cfg.MODEL.RPN.DELTA_BIAS_INIT = 1.0  # proposals of positive size from a random init
+    if roi_batch is not None:
+        cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = roi_batch
     return cfg
 
 
@@ -121,8 +123,16 @@ def roi_align_with_f32_backward(feats, boxes, strides, out_size=7, sampling_rati
 
 @pytest.fixture(scope="module")
 def step():
+    return jax_and_port_step(CONFIG)
+
+
+def jax_and_port_step(config, roi_batch=None):
+    """One training step of the config file ``config`` in JAX
+    (``jax.value_and_grad``, and again with the f32-summed RoIAlign
+    backward) and in the port, from the same parameters and draws;
+    ``roi_batch`` overrides the RoIs sampled per image."""
     rng = np.random.RandomState(0)
-    cfg = load_cfg(jax_cfg)
+    cfg = load_cfg(jax_cfg, config, roi_batch)
     spec = jax_det.ModelSpec.from_cfg(cfg, jax_det.opendet_id_map(81, 20))
     module = jax_det.OpensetRCNNModule(spec=spec)
     params = jax.jit(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)))["params"])()
@@ -149,7 +159,7 @@ def step():
         mp.setattr(jax_heads, "multilevel_roi_align_batched", roi_align_with_f32_backward)
         f32_grads = jax.tree.map(np.array, jax.jit(jax.grad(lambda p: loss_fn(p)[0]))(params))
 
-    pspec = port_det.ModelSpec.from_cfg(load_cfg(port_cfg))
+    pspec = port_det.ModelSpec.from_cfg(load_cfg(port_cfg, config, roi_batch))
     model = port_det.OpensetRCNN(pspec)
     model.load_state_dict(state_dict_from_jax(params, model.state_dict().keys()))
     model = model.to(memory_format=torch.channels_last).train()
