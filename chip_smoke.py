@@ -53,7 +53,12 @@ In order it
      (configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml) and bf16 with
      TPU.ROI_ALIGN_IMPL pallas; then the parity config
      (configs/VOC-COCO/openset_rcnn_R50_FPN_128k_parity.yaml: f32, gather
-     levels, the adaptive grid), serving and one training step;
+     levels, the adaptive grid), serving and one training step; then the
+     same two for the Swin-T and the ViT-B configs
+     (configs/VOC-COCO/openset_rcnn_SwinT_FPN_128k.yaml, drop-path 0.2, with
+     the CPU's drop-path masks handed to the GPU;
+     configs/VOC-COCO/openset_rcnn_ViT_FPN_128k.yaml, norm clipping), each
+     in f32 and with TPU.DTYPE bfloat16;
  10. serve: Predictor on the f32 config at 832x1344, batch 8, seeded random
      weights; warm-up, then timed batches with CUDA events, the stage split,
      launch counts, output checks, and the cascade with kernel NMS against
@@ -63,8 +68,15 @@ In order it
      launch counts, finite losses, frozen parameters and buffers bitwise
      unchanged, trainable ones moved, one step under torch.profiler (device
      idle share, device time by kernel), and two steps from one state on
-     one batch giving bitwise equal parameters (a gate); then train_parity,
-     the same on the parity config (K1's and K2 f32's adaptive modes);
+     one batch giving bitwise equal parameters (a gate); a trainable tensor
+     that did not move fails the gate unless its last update lies below half
+     an f32 step of every element; then train_remat: the f32 config with
+     TPU.REMAT true, one step bitwise the step without remat from the same
+     seeded state (a gate), timed steps and peak memory beside train's; then
+     serve_swin and serve_vit (Predictor, batch 8, as serve) and train_swin
+     (drop-path 0.2 active) and train_vit (norm clipping) (Trainer, batch 4,
+     as train) on the two transformer configs; then train_parity, the same
+     on the parity config (K1's and K2 f32's adaptive modes);
  12. serve_bf16: the same on the production bf16 config (batch 8);
  13. eval: the evaluation path, do_test, on the production bf16 config over
      44 seeded synthetic records (28 landscape 800x1200, 16 portrait
@@ -134,6 +146,8 @@ CONFIG = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml"
 CONFIG_BF16 = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml"  # the production config
 # f32, gather levels, the adaptive grid, the host cascade
 CONFIG_PARITY = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_parity.yaml"
+CONFIG_SWIN = ROOT / "configs/VOC-COCO/openset_rcnn_SwinT_FPN_128k.yaml"  # Swin-T, drop-path 0.2
+CONFIG_VIT = ROOT / "configs/VOC-COCO/openset_rcnn_ViT_FPN_128k.yaml"    # ViT-B, norm clipping
 BATCH = 8
 BUCKET = (832, 1344)
 STRIDES = (4, 8, 16, 32)
@@ -931,6 +945,9 @@ def phase_train_reference(torch, dev, cfg, label, bf16, wide=False):
     anchors, level_sizes = cpu.anchors((H, W))
     n_props = sum(min(cpu.spec.pre_nms_topk_train, n) for n in level_sizes)
     draws = {"rpn": u(B, 2, 2, anchors.shape[0]), "roi": u(B, 3, n_props + G)}
+    rates = cpu.model.branch_rates
+    if any(r > 0 for r in rates):  # the backbone's drop-path masks: the two devices' generators differ
+        draws["drop_path"] = u(len(rates), B) < torch.tensor([1.0 - r for r in rates])[:, None]
     want = cpu.step(batch, uniforms=draws)
     got = gpu.step(batch, uniforms={k: v.to(dev) for k, v in draws.items()})
     check(set(got) == set(want), f"train reference {label}: metric keys differ")
@@ -998,7 +1015,10 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     for _ in range(TRAIN_WARMUP):
         trainer.step(batch)
     torch.cuda.synchronize()
-    print(f"{label}: model built ({cfg.TPU.DTYPE}, RoIAlign backward {cfg.TPU.ROI_ALIGN_BWD}"
+    clip = cfg.SOLVER.CLIP_GRADIENTS
+    print(f"{label}: model built ({cfg.MODEL.BACKBONE.NAME}, {cfg.TPU.DTYPE}, RoIAlign backward "
+          f"{cfg.TPU.ROI_ALIGN_BWD}, drop-path up to {max(model.branch_rates, default=0.0)}, gradient clipping "
+          f"{f'{clip.CLIP_TYPE} {clip.CLIP_VALUE}' if clip.ENABLED else 'off'}"
           f"{f', {calibrated} FrozenBN statistics calibrated on the batch' if calibrate else ''}) and "
           f"{TRAIN_WARMUP} warm-up steps in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1040,7 +1060,7 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
                   f"{label}: parameter {n} or its gradient is not f32")
     for n, b in model.named_buffers():
         check(torch.equal(b, buffers[n]), f"{label}: buffer {n} changed")
-    unmoved = [n for n, p in model.named_parameters() if n in before and torch.equal(p, before[n])]
+    unmoved, below_ulp = unmoved_params(torch, trainer, before)
     check(not unmoved, f"{label}: trainable parameters that did not move: {unmoved}")
     n_params, differ, worst = repeat_step(torch, trainer, batch)
     by_module = {}
@@ -1056,7 +1076,8 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     print(f"{label}: {ms:.2f} ms/step ({batch_size * 1e3 / ms:.2f} img/s) at batch {batch_size} over {TRAIN_STEPS} "
           f"steps (per step {[round(x, 2) for x in step_ms]}; host clock {wall:.2f} ms/step); peak memory "
           f"{peak_gb:.2f} GB; {len(frozen)} frozen parameters and {len(buffers)} buffers unchanged, "
-          f"{len(before)} trainable parameters moved", flush=True)
+          f"{len(before) - len(below_ulp)} trainable parameters moved, {len(below_ulp)} whose last update lies "
+          f"below half an f32 step of every element{f' (e.g. {below_ulp[:3]})' if below_ulp else ''}", flush=True)
     print(f"{label} stages (ms): " + json.dumps({k: round(x, 3) for k, x in stages.items()}), flush=True)
     print(f"{label}: last timed step " + json.dumps({k: round(float(v), 6) for k, v in last.items()}), flush=True)
     print(f"{label}: launches over the timed steps " + json.dumps(launches), flush=True)
@@ -1064,6 +1085,87 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     return launches, dict(ms_per_step=ms, img_per_s=batch_size * 1e3 / ms, batch=batch_size, stages_ms=stages,
                           peak_gb=peak_gb, device_idle_share=profile["idle_share"],
                           repeat_bitwise=not differ, flags_inside=flags["inside"])
+
+
+def unmoved_params(torch, trainer, before):
+    """(trainable tensors equal to ``before`` though the last step's update,
+    lr x momentum buffer, reaches half an f32 step of one of their elements;
+    those equal to ``before`` whose last update lies below half a step of
+    every element, which no f32 update can move: a LayerNorm scale near 1
+    under a small learning rate, a clipped gradient)."""
+    opt = trainer.state.optimizer
+    lr = opt.param_groups[0]["lr"]
+    unmoved, below_ulp = [], []
+    for n, p in trainer.model.named_parameters():
+        if n in before and torch.equal(p, before[n]):
+            update = lr * opt.state[p]["momentum_buffer"].abs()
+            a = p.detach().abs()
+            movable = bool((update > (torch.nextafter(a, torch.full_like(a, math.inf)) - a) / 2).any())
+            (unmoved if movable else below_ulp).append(n)
+    return unmoved, below_ulp
+
+
+def phase_train_remat(torch, dev, cfg, train):
+    """``TPU.REMAT true`` on ``cfg`` at batch 4 on bench.py's batch: one step
+    from the seeded init against the same step without remat, bitwise (a
+    gate); then timed steps, launches and peak memory, beside ``train``'s."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    host = bench_batch(torch, TRAIN_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+    check(not cfg.TPU.REMAT, "train_remat: the reference step must run without remat")
+    plain = Trainer(cfg, seed=0)
+    plain.step(batch)
+    want = {n: p.detach().clone() for n, p in plain.model.named_parameters()}
+    del plain
+    torch.cuda.empty_cache()
+    cfg = cfg.clone()
+    cfg.TPU.REMAT = True
+    trainer = Trainer(cfg, seed=0)
+    check(trainer.model.backbone.remat, "train_remat: the backbone does not recompute its blocks")
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    differ = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, want[n])]
+    worst = max((float((p - want[n]).abs().max()) for n, p in trainer.model.named_parameters() if n in differ),
+                default=0.0)
+    print(f"train_remat: one step with TPU.REMAT true against one without, from the same seeded state: "
+          + (f"all {len(want)} parameter tensors bitwise equal" if not differ else
+             f"{len(differ)} of {len(want)} differ (largest {worst:.3e}; first {differ[:3]})"), flush=True)
+    check(not differ, f"train_remat: {len(differ)} parameter tensors differ from the step without remat")
+    for _ in range(TRAIN_WARMUP - 1):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    history = []
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        history.append(trainer.step(batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fwd, bwd = train_kernels(cfg)
+    expected = {name: 0 for name in launches}
+    expected.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS})
+    check(launches == expected, f"train_remat launches {launches}, expected {expected}")
+    for m in history:
+        for k, v in m.items():
+            check(math.isfinite(float(v)), f"train_remat: {k} is not finite")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
+    ms = sum(step_ms) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train_remat: {ms:.2f} ms/step ({TRAIN_BATCH * 1e3 / ms:.2f} img/s) at batch {TRAIN_BATCH} over "
+          f"{TRAIN_STEPS} steps (per step {[round(x, 2) for x in step_ms]}); peak memory {peak_gb:.2f} GB; "
+          f"without remat (train): {train['ms_per_step']:.2f} ms/step, peak {train['peak_gb']:.2f} GB; "
+          f"launches " + json.dumps(launches), flush=True)
+    return launches, dict(ms_per_step=ms, img_per_s=TRAIN_BATCH * 1e3 / ms, batch=TRAIN_BATCH, peak_gb=peak_gb,
+                          first_step_bitwise_without_remat=True, train_ms_per_step=train["ms_per_step"],
+                          train_peak_gb=train["peak_gb"])
 
 
 def train_kernels(cfg):
@@ -1783,9 +1885,20 @@ def main():
                           "bf16, ROI_ALIGN_IMPL pallas", bf16=True, wide=True)
     phase_reference(torch, dev, load_cfg(CONFIG_PARITY), "parity", bf16=False)
     phase_train_reference(torch, dev, load_cfg(CONFIG_PARITY), "parity", bf16=False)
+    for name, config in (("swin", CONFIG_SWIN), ("vit", CONFIG_VIT)):
+        for dtype, bf16 in (("float32", False), ("bfloat16", True)):
+            label = f"{name} {'bf16' if bf16 else 'f32'}"
+            phase_reference(torch, dev, load_cfg(config, DTYPE=dtype), label, bf16=bf16)
+            phase_train_reference(torch, dev, load_cfg(config, DTYPE=dtype), label, bf16=bf16)
     results = {}
     paths["serve"], results["serve"] = phase_serve(torch, dev, load_cfg(), "serve")
     paths["train"], results["train"] = phase_train(torch, dev, load_cfg(), "train", TRAIN_BATCH)
+    paths["train_remat"], results["train_remat"] = phase_train_remat(torch, dev, load_cfg(), results["train"])
+    paths["serve_swin"], results["serve_swin"] = phase_serve(torch, dev, load_cfg(CONFIG_SWIN), "serve_swin")
+    paths["serve_vit"], results["serve_vit"] = phase_serve(torch, dev, load_cfg(CONFIG_VIT), "serve_vit")
+    paths["train_swin"], results["train_swin"] = phase_train(torch, dev, load_cfg(CONFIG_SWIN), "train_swin",
+                                                             TRAIN_BATCH)
+    paths["train_vit"], results["train_vit"] = phase_train(torch, dev, load_cfg(CONFIG_VIT), "train_vit", TRAIN_BATCH)
     paths["train_parity"], results["train_parity"] = phase_train(torch, dev, load_cfg(CONFIG_PARITY),
                                                                  "train_parity", TRAIN_BATCH)
     paths["serve_bf16"], results["serve_bf16"] = phase_serve(torch, dev, load_cfg(CONFIG_BF16), "serve_bf16")

@@ -4,12 +4,13 @@ The JAX package beside it stays the reference. This package imports neither
 JAX nor any module of ``openset_rcnn_tpu``: what it needs from there it keeps
 as its own copy, and each copy names its source file.
 
-What runs here (R50-FPN, f32 and the production bf16 configuration):
-  * serving: preprocess -> ResNet-50 (FrozenBN) -> FPN P2-P6 -> CF-RPN head
-    -> per-level top-k proposals -> RoIAlign (CUDA kernel) -> box/IoU/PLN/
-    classifier heads -> raw detections -> fused open-set cascade with greedy
-    NMS (CUDA kernel): ``evaluation.inference.Predictor``; proposals only:
-    ``ProposalPredictor``;
+What runs here (every config of ``configs/``, f32 or bf16; the backbone is
+ResNet + FPN, Swin-T + FPN or ViT-B with its simple pyramid):
+  * serving: preprocess -> backbone (e.g. ResNet-50 with FrozenBN) -> P2-P6
+    -> CF-RPN head -> per-level top-k proposals -> RoIAlign (CUDA kernel) ->
+    box/IoU/PLN/classifier heads -> raw detections -> fused open-set cascade
+    with greedy NMS (CUDA kernel): ``evaluation.inference.Predictor``;
+    proposals only: ``ProposalPredictor``;
   * training: the SGD step with the fused IoU+matcher and the RoIAlign
     backward (CUDA kernels): ``engine.train_state.Trainer``;
   * evaluation: ``engine.train_loop.do_test`` over a dataset of the catalog

@@ -4,9 +4,10 @@ Port of ``openset_rcnn_tpu/engine/train_state.py:20-87``. ``Trainer`` is the
 entry point: the model on the GPU unless the caller names a device, its
 frozen stages, the optimizer, anchors per image bucket, and ``step(batch)``.
 
-Randomness: the samplers of step k draw from a generator seeded from
-(seed, k), so a run resumed at step k draws what the uninterrupted run drew
-(the role of ``jax.random.fold_in(rng, step)`` at ``train_state.py:73``).
+Randomness: the samplers and the backbone's drop-path masks of step k draw
+from a generator seeded from (seed, k), so a run resumed at step k draws
+what the uninterrupted run drew (the role of ``jax.random.fold_in(rng,
+step)`` at ``train_state.py:73``).
 
 Numerics: ``Trainer.step`` runs its forward, backward and update under
 ``device.entry_numerics(deterministic=True)``: f32 without TF32, bf16
@@ -83,7 +84,7 @@ def make_train_step(
 
 
 class Trainer:
-    """R50-FPN training on one device.
+    """Training on one device, for every backbone the port builds.
 
     Args:
         cfg: a CfgNode (e.g. configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml
@@ -125,8 +126,8 @@ class Trainer:
              mark: Mark = None) -> Dict[str, torch.Tensor]:
         """One SGD step on ``batch`` (images padded to one bucket, with each
         image's true (h, w) and padded GT); the metrics stay on the device.
-        ``uniforms`` replaces the step's sampling draws (see
-        ``training_losses_and_stats``)."""
+        ``uniforms`` replaces the step's sampling draws and drop-path masks,
+        each that it holds (see ``training_losses_and_stats``)."""
         dev = self.device
         batch = ImageBatch(
             images=batch.images.to(dev),
@@ -135,6 +136,6 @@ class Trainer:
                            batch.gt.valid.to(dev)),
         )
         anchors, level_sizes = self.anchors(tuple(batch.images.shape[1:3]))
-        generator = None if uniforms is not None else step_generator(self.seed, self.state.step, dev)
+        generator = step_generator(self.seed, self.state.step, dev)  # for the draws ``uniforms`` lacks
         with entry_numerics(deterministic=True):
             return self._train_step(self.state, batch, anchors, level_sizes, generator, uniforms, mark)

@@ -46,7 +46,7 @@ class _OnDevice:
 
 
 class Predictor(_OnDevice):
-    """R50-FPN open-set inference on one device.
+    """Open-set inference on one device, for every backbone the port builds.
 
     Args:
         cfg: a CfgNode (e.g. configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml

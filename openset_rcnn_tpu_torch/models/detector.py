@@ -24,6 +24,7 @@ from ..device import resolve_device
 from ..ops.anchors import fpn_anchors
 from ..ops.box_transforms import Box2BoxTransform, Box2BoxTransformLinear
 from ..ops.roi_align import ADAPTIVE
+from ..ops.sampling import draw_uniforms
 from ..structures import ImageBatch, RawDetections
 from .fpn import FPN
 from .resnet import ResNet
@@ -42,6 +43,8 @@ from .roi_heads import (
     raw_detections,
 )
 from .rpn import ClsFreeRPNHead, rpn_losses, rpn_targets, select_proposals
+from .swin import SwinTransformer
+from .vit import ViTSimpleFPN
 
 RPN_STRIDES = (4, 8, 16, 32, 64)
 ROI_STRIDES = (4, 8, 16, 32)
@@ -105,6 +108,9 @@ class ModelSpec(NamedTuple):
     resnet_depth: int
     roi_align_impl: str
     roi_align_bwd: str
+    swin_size: str
+    swin_drop_path: float
+    vit_drop_path: float
 
     @staticmethod
     def from_cfg(cfg, id_map: Optional[Sequence[int]] = None) -> "ModelSpec":
@@ -166,6 +172,9 @@ class ModelSpec(NamedTuple):
             resnet_depth=m.RESNETS.DEPTH,
             roi_align_impl=cfg.TPU.ROI_ALIGN_IMPL,
             roi_align_bwd=cfg.TPU.ROI_ALIGN_BWD,
+            swin_size=m.SWIN.SIZE,
+            swin_drop_path=m.SWIN.get("DROP_PATH_RATE", 0.0),
+            vit_drop_path=m.VIT.get("DROP_PATH_RATE", 0.0) if "VIT" in m else 0.0,
         )
 
 
@@ -192,32 +201,31 @@ def known_ids_id_map(num_classes: int, known_contiguous_ids: Sequence[int]) -> L
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+RESNET, SWIN, VIT = "build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone"
 
 
 class OpensetRCNN(nn.Module):
     """Every parameter of the detector; the functions below do the rest.
 
-    The port runs the R50-FPN trunk in float32 or bfloat16
-    (``TPU.DTYPE``; bf16 covers the trunk, FPN, RPN head and box head, with
-    parameters, losses and the other heads in f32, as the JAX module) with
-    the static RoIAlign grid or the adaptive one (``TPU.ROI_SAMPLING_RATIO
-    -1``, which pools at the gather levels with f32 backward accumulators,
-    see ``pool_features``); ``TPU.REMAT`` and the Swin/ViT backbones are
-    later slices and raise here.
+    The backbone is the one ``MODEL.BACKBONE.NAME`` names, as the JAX
+    module builds it (``openset_rcnn_tpu/models/detector.py:196-220``): a
+    ResNet + FPN (``TPU.REMAT`` recomputes its blocks in the backward), a
+    Swin Transformer + FPN, or the ViT with its simple pyramid (no ``fpn``).
+    It runs in float32 or bfloat16 (``TPU.DTYPE``; bf16 covers the trunk,
+    FPN, RPN head and box head, with parameters, losses and the other heads
+    in f32, as the JAX module) with the static RoIAlign grid or the adaptive
+    one (``TPU.ROI_SAMPLING_RATIO -1``, which pools at the gather levels with
+    f32 backward accumulators, see ``pool_features``).
     """
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        if spec.backbone_name != "build_resnet_fpn_backbone":
-            raise NotImplementedError(f"backbone {spec.backbone_name} is not ported yet")
+        if spec.backbone_name not in (RESNET, SWIN, VIT):
+            raise ValueError(f"MODEL.BACKBONE.NAME must be one of {(RESNET, SWIN, VIT)}, not {spec.backbone_name!r}")
         if spec.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
         if spec.roi_sampling_ratio < 1 and spec.roi_sampling_ratio != ADAPTIVE:
             raise ValueError(f"TPU.ROI_SAMPLING_RATIO must be >= 1 or -1 (adaptive), not {spec.roi_sampling_ratio}")
-        if spec.remat:
-            raise NotImplementedError("TPU.REMAT (recomputing the ResNet blocks in the backward, "
-                                      "openset_rcnn_tpu/models/resnet.py:104, 116) is not ported yet: "
-                                      "it comes with the engine loop (ROADMAP.md queue A item 5)")
         if spec.roi_align_impl not in ROI_ALIGN_IMPLS:
             raise ValueError(f"TPU.ROI_ALIGN_IMPL must be one of {ROI_ALIGN_IMPLS}, not {spec.roi_align_impl!r}")
         if spec.roi_align_bwd not in ROI_ALIGN_BWD_ACC:
@@ -227,8 +235,16 @@ class OpensetRCNN(nn.Module):
         dtype = COMPUTE_DTYPES[spec.compute_dtype]
         head_dtype = None if dtype == torch.float32 else dtype  # the JAX heads' dtype
         num_anchors = len(spec.anchor_aspect_ratios) * len(spec.anchor_sizes[0])
-        self.backbone = ResNet(depth=spec.resnet_depth, compute_dtype=dtype)
-        self.fpn = FPN(out_channels=256, compute_dtype=dtype)
+        if spec.backbone_name == VIT:  # the ViTDet trunk emits the pyramid itself
+            self.backbone = ViTSimpleFPN(compute_dtype=dtype, drop_path_rate=spec.vit_drop_path)
+            self.fpn = None
+        elif spec.backbone_name == SWIN:
+            self.backbone = SwinTransformer(size=spec.swin_size, compute_dtype=dtype,
+                                            drop_path_rate=spec.swin_drop_path)
+            self.fpn = FPN(out_channels=256, compute_dtype=dtype, in_channels=self.backbone.out_channels)
+        else:
+            self.backbone = ResNet(depth=spec.resnet_depth, compute_dtype=dtype, remat=spec.remat)
+            self.fpn = FPN(out_channels=256, compute_dtype=dtype)
         self.rpn_head = ClsFreeRPNHead(256, num_anchors, spec.rpn_delta_bias_init, compute_dtype=head_dtype)
         self.box_head = BoxHead(in_dim=256 * spec.pooler_resolution**2, fc_dim=spec.fc_dim,
                                 compute_dtype=head_dtype)
@@ -242,7 +258,14 @@ class OpensetRCNN(nn.Module):
         """The JAX module's initializers, drawn from ``generator``."""
         for m in (self.backbone, self.fpn, self.rpn_head, self.box_head,
                   self.box_predictor, self.pln, self.classifier):
-            m.reset_parameters(generator)
+            if m is not None:
+                m.reset_parameters(generator)
+
+    @property
+    def branch_rates(self) -> List[float]:
+        """The drop-path rate of every residual branch of the backbone, in
+        call order (empty for the ResNet)."""
+        return getattr(self.backbone, "branch_rates", [])
 
     def preprocess(self, images: torch.Tensor, image_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, H, W, 3) raw pixels -> normalised NCHW (channels_last memory).
@@ -260,8 +283,13 @@ class OpensetRCNN(nn.Module):
             x = torch.where(m[..., None], x, torch.zeros_like(x))
         return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
-    def features(self, images: torch.Tensor, image_hw: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        return self.fpn(self.backbone(self.preprocess(images, image_hw)))
+    def features(self, images: torch.Tensor, image_hw: Optional[torch.Tensor] = None,
+                 drop_path: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """{p2..p6}. ``drop_path``: the backbone's per-sample keep masks,
+        (len(branch_rates), B), in training only; None turns drop-path off."""
+        x = self.preprocess(images, image_hw)
+        feats = self.backbone(x) if drop_path is None else self.backbone(x, drop_path=drop_path)
+        return feats if self.fpn is None else self.fpn(feats)
 
     def rpn_predictions(self, fpn_feats: Dict[str, torch.Tensor],
                         in_features: Sequence[str] = ("p2", "p3", "p4", "p5", "p6")):
@@ -337,6 +365,14 @@ def inference_forward(
     return raw
 
 
+def drop_path_masks(rates: Sequence[float], batch_size: int, generator: Optional[torch.Generator],
+                    device: torch.device) -> torch.Tensor:
+    """(len(rates), B) per-sample keep masks, keep where u < 1 - rate (the
+    Bernoulli draw of JAX's ``_drop_path``), u uniform from ``generator``."""
+    u = draw_uniforms((len(rates), batch_size), device, generator)
+    return u < torch.tensor([1.0 - r for r in rates], device=device)[:, None]
+
+
 def training_losses_and_stats(
     model: OpensetRCNN,
     batch: ImageBatch,
@@ -352,15 +388,23 @@ def training_losses_and_stats(
     Port of ``openset_rcnn_tpu/models/detector.py:343-466``. The sampling
     draws come from ``uniforms`` when given, {"rpn": (B, 2, 2, R), "roi":
     (B, 3, P + G)} (see ``rpn_targets`` and ``label_and_sample_proposals``),
-    else from ``generator``. Targets and proposals carry no gradient (the
-    JAX ``stop_gradient`` on the proposals' inputs). ``mark(stage)``, when
+    else from ``generator``. So do the backbone's drop-path keep masks
+    (Swin, ViT with a rate above 0; JAX's ``dropout`` stream): "drop_path",
+    (len(model.branch_rates), B) bool, else drawn from ``generator`` before
+    the forward. Drop-path is on here only: ``inference_forward`` never
+    passes masks, whatever the module's ``training`` flag. Targets and
+    proposals carry no gradient (the JAX ``stop_gradient`` on the
+    proposals' inputs). ``mark(stage)``, when
     given, is called after each stage of the forward ("backbone", "rpn":
     head, targets and losses, "sampling": proposals and ROI sampling,
     "roi_align", "heads": heads, ROI losses and scalars).
     """
     uniforms = uniforms or {}
     linear_tf = Box2BoxTransformLinear(normalize_by_size=True)
-    fpn_feats = model.features(batch.images, batch.image_hw)
+    keep = uniforms.get("drop_path")
+    if keep is None and any(r > 0 for r in model.branch_rates):
+        keep = drop_path_masks(model.branch_rates, batch.images.shape[0], generator, batch.images.device)
+    fpn_feats = model.features(batch.images, batch.image_hw, drop_path=keep)
     if mark:
         mark("backbone")
     pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)

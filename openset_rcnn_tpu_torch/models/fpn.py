@@ -8,7 +8,7 @@ inside the convs, ``resnet.Conv2d``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -21,11 +21,15 @@ IN_CHANNELS = (256, 512, 1024, 2048)  # the ResNet stages'
 
 
 class FPN(nn.Module):
-    def __init__(self, out_channels: int = 256, compute_dtype: torch.dtype = torch.float32):
+    """``in_channels``: the widths of res2..res5 (the ResNet's by default;
+    JAX infers them from the inputs)."""
+
+    def __init__(self, out_channels: int = 256, compute_dtype: torch.dtype = torch.float32,
+                 in_channels: Sequence[int] = IN_CHANNELS):
         super().__init__()
         self.in_features = IN_FEATURES
         self.compute_dtype = compute_dtype
-        for f, cin in zip(IN_FEATURES, IN_CHANNELS):
+        for f, cin in zip(IN_FEATURES, in_channels):
             self.add_module(f"lateral_{f}", Conv2d(cin, out_channels, 1))
             self.add_module(f"output_{f}", Conv2d(out_channels, out_channels, 3, padding=1))
 

@@ -12,6 +12,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # Block counts per stage for each supported depth.
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -78,11 +79,19 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns {res2, res3, res4, res5} NCHW feature maps in ``compute_dtype``."""
+    """Returns {res2, res3, res4, res5} NCHW feature maps in ``compute_dtype``.
 
-    def __init__(self, depth: int = 50, compute_dtype: torch.dtype = torch.float32):
+    ``remat`` (``TPU.REMAT``, JAX's ``nn.remat(BottleneckBlock)`` at
+    ``openset_rcnn_tpu/models/resnet.py:104, 116``): while gradients are
+    enabled, each bottleneck block keeps only its input and recomputes its
+    activations in the backward pass (``torch.utils.checkpoint``). The
+    gradients are those without it, bit for bit.
+    """
+
+    def __init__(self, depth: int = 50, compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.stem_conv = _conv(3, STEM_CHANNELS, 7, 2)
         self.stem_bn = FrozenBN(STEM_CHANNELS)
         self.stages = []  # [(stage name, [block names])]
@@ -105,7 +114,11 @@ class ResNet(nn.Module):
         outputs = {}
         for stage, names in self.stages:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
             outputs[stage] = x
         return outputs
 

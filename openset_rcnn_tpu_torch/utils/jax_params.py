@@ -8,8 +8,16 @@ this module needs no JAX. It inverts the layout helpers of
 * conv kernels HWIO -> OIHW;
 * Dense kernels (I, O) -> (O, I); the first box-head FC needs no row
   permutation because the port pools RoIs as (R, 7, 7, C), the JAX order;
-* FrozenBN ``scale/bias/mean/var`` -> buffers of the same names;
-* the PLN ``representatives`` as they are.
+* ConvTranspose kernels (the ViT pyramid's ``up2a``, ``up2b``) HWIO ->
+  (I, O, kh, kw), flipped in both spatial axes: flax's ``ConvTranspose``
+  (``lax.conv_transpose``, ``transpose_kernel=False``) does not flip the
+  kernel, torch's ``ConvTranspose2d`` does (the inverse of
+  ``openset_rcnn_tpu/utils/torch_weights.py:280-287``);
+* FrozenBN ``scale/bias/mean/var`` -> buffers of the same names, and flax
+  LayerNorm ``scale/bias`` -> parameters of the same names
+  (``models/transformer.py::LayerNorm``): the port's tree keeps them apart;
+* the PLN ``representatives``, the Swin ``rel_bias_table`` and the ViT
+  ``pos_embed`` as they are.
 
 Module names of the port follow the JAX tree, so a key maps by joining its
 path with "." and renaming ``kernel`` to ``weight``.
@@ -20,6 +28,10 @@ from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
+
+# the flax ConvTranspose modules of the tree (openset_rcnn_tpu/models/vit.py:223-229)
+TRANSPOSED_CONVS = ("up2a", "up2b")
+CARRIED = ("bias", "scale", "mean", "var", "representatives", "rel_bias_table", "pos_embed")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -36,14 +48,16 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 def _convert(key: str, value: np.ndarray):
     *path, leaf = key.split(".")
     if leaf == "kernel":
-        if value.ndim == 4:
+        if value.ndim == 4 and path[-1] in TRANSPOSED_CONVS:
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO -> (I, O, kh, kw), flipped
+        elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif value.ndim == 2:
             value = value.T  # (I, O) -> (O, I)
         else:
             raise KeyError(f"{key}: no mapping for a kernel of shape {value.shape}")
         leaf = "weight"
-    elif leaf not in ("bias", "scale", "mean", "var", "representatives"):
+    elif leaf not in CARRIED:
         raise KeyError(f"{key}: no mapping for this parameter")
     return ".".join([*path, leaf]), torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
 

@@ -752,3 +752,57 @@ def test_device_prefetch_and_to_host_on_the_card(dev):
         copy = to_host(SimpleNamespace(x=out, n=out.sum((1, 2, 3))), ("x", "n")).numpy()
         np.testing.assert_array_equal(copy["x"], out.cpu().numpy())
         np.testing.assert_array_equal(copy["n"], out.sum((1, 2, 3)).cpu().numpy())
+
+
+def config_file(name, **tpu):
+    from pathlib import Path
+
+    from openset_rcnn_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs/VOC-COCO" / name))
+    cfg.MODEL.RPN.DELTA_BIAS_INIT = 1.0
+    for key, value in tpu.items():
+        setattr(cfg.TPU, key, value)
+    return cfg
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("config", ["openset_rcnn_SwinT_FPN_128k.yaml", "openset_rcnn_ViT_FPN_128k.yaml"])
+def test_transformer_backbone_on_the_card_matches_the_cpu(dev, config, dtype, tol):
+    """The Swin-T and ViT-B detectors' pyramids on the card against the same
+    seeded model on the CPU, on 2 x 64 x 96: within ``tol`` of max(1,
+    max|want|) (f32 without TF32; bf16 rounds after other f32 sums)."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+
+    cfg = config_file(config, DTYPE=dtype)
+    spec = ModelSpec.from_cfg(cfg)
+    cpu = build_model(spec, "cpu", seed=0)
+    gpu = build_model(spec, dev, state_dict=cpu.state_dict())
+    batch = small_trainer_batch(dev, cfg)
+    with torch.no_grad(), entry_numerics():
+        want = cpu.features(batch.images.cpu(), batch.image_hw.cpu())
+        got = gpu.features(batch.images, batch.image_hw)
+    assert set(got) == {"p2", "p3", "p4", "p5", "p6"}
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16), k
+        err = float((got[k].cpu().double() - w.double()).abs().max())
+        assert err <= tol * max(1.0, float(w.double().abs().max())), (k, err)
+
+
+def test_remat_step_on_the_card_is_bitwise_the_plain_step(dev):
+    """One Trainer.step with TPU.REMAT true from the seeded init gives the
+    parameters of the same step without it, bit for bit."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+
+    params = {}
+    for remat in (False, True):
+        cfg = config_file("openset_rcnn_R50_FPN_128k.yaml", REMAT=remat)
+        cfg.SOLVER.WARMUP_ITERS = 0
+        trainer = Trainer(cfg, seed=0)
+        assert trainer.model.backbone.remat is remat
+        trainer.step(small_trainer_batch(dev, cfg))
+        params[remat] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    differ = [n for n, p in params[True].items() if not torch.equal(p, params[False][n])]
+    assert not differ, differ

@@ -107,19 +107,43 @@ def test_model_spec_from_cfg_matches_jax(setup):
 
 
 def test_remat_raises_until_ported():
-    """TPU.REMAT is read, as JAX reads it, and raises until the port
-    recomputes its ResNet blocks; the default (false) builds."""
+    """TPU.REMAT is read as JAX reads it and is ported (the name is from
+    before): ``true`` builds, each ResNet block runs again in the backward
+    (``torch.utils.checkpoint``), and one CPU training step's gradients and
+    losses are bitwise those without it."""
+    from openset_rcnn_tpu_torch.engine.optimizer import freeze
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+    from tests.test_torch_port_train_step import make_batch
+
     cfg = load_cfg(port_cfg)
-    spec = port_det.ModelSpec.from_cfg(cfg)
-    assert spec.remat is False
-    assert isinstance(port_det.OpensetRCNN(spec), torch.nn.Module)
+    assert port_det.ModelSpec.from_cfg(cfg).remat is False
     cfg.TPU.REMAT = True
     spec = port_det.ModelSpec.from_cfg(cfg)
     jcfg = load_cfg(jax_cfg)
     jcfg.TPU.REMAT = True
     assert spec.remat is jax_det.ModelSpec.from_cfg(jcfg, jax_det.opendet_id_map(81, 20)).remat is True
-    with pytest.raises(NotImplementedError, match="REMAT.*queue A item 5"):
-        port_det.OpensetRCNN(spec)
+    images, boxes, classes, valid = make_batch(np.random.RandomState(2), cfg.MODEL.PIXEL_MEAN)
+    batch = ImageBatch(torch.from_numpy(images), torch.from_numpy(IMAGE_HW),
+                       GroundTruth(torch.from_numpy(boxes), torch.from_numpy(classes), torch.from_numpy(valid)))
+    out = {}
+    for remat in (False, True):
+        model = port_det.build_model(spec._replace(remat=remat), "cpu", seed=0).train()
+        assert model.backbone.remat is remat
+        freeze(model, spec.freeze_at)
+        calls = []
+        model.backbone.res4_block2.register_forward_pre_hook(lambda *a: calls.append(1))
+        anchors, level_sizes = port_det.compute_anchors(spec, (H, W))
+        losses, _ = port_det.training_losses_and_stats(model, batch, spec, torch.from_numpy(anchors), level_sizes,
+                                                       generator=torch.Generator().manual_seed(5))
+        sum(losses.values()).backward()
+        out[remat] = ({k: v.detach() for k, v in losses.items()}, len(calls),
+                      {n: p.grad for n, p in model.named_parameters() if p.grad is not None})
+    (l0, calls0, g0), (l1, calls1, g1) = out[False], out[True]
+    assert (calls0, calls1) == (1, 2)  # the remat block ran again in the backward
+    assert all(torch.equal(l0[k], l1[k]) for k in l0)
+    assert set(g0) == set(g1) and len(g0) == 79
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
 
 
 def test_bridge_raises_on_missing_and_unmapped_keys(setup):

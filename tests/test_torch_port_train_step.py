@@ -126,11 +126,58 @@ def step():
     return jax_and_port_step(CONFIG)
 
 
-def jax_and_port_step(config, roi_batch=None):
+def intercepted(fn, args, record):
+    """``fn(*args)`` under ``jax.jit`` and ``flax.linen.intercept_methods``:
+    ``record(ctx, args, out)`` gives (name, value) to keep of a module
+    method's call, or None. Returns fn's output and [(name, value)], numpy."""
+    import flax.linen as fnn
+
+    names = []
+
+    @jax.jit
+    def run(*a):
+        kept = []
+
+        def spy(next_fun, call_args, kwargs, ctx):
+            out = next_fun(*call_args, **kwargs)
+            r = record(ctx, call_args, out)
+            if r is not None:
+                names.append(r[0])
+                kept.append(r[1])
+            return out
+
+        with fnn.intercept_methods(spy):
+            return fn(*a), kept
+
+    out, kept = jax.tree.map(np.asarray, run(*args))
+    return out, list(zip(names, kept))
+
+
+def dropped_branches(ctx, args, out):
+    """``intercepted``'s record of the drop-path keep masks: per
+    ``_drop_path`` call, the samples whose returned branch is not all zeros."""
+    if ctx.method_name == "_drop_path":
+        return ctx.module.name, ~jnp.all(out.reshape(out.shape[0], -1) == 0, axis=1)
+    return None
+
+
+def jax_drop_path_masks(module, params, batch, key):
+    """JAX's drop-path keep masks of a training step with ``key``, (branches,
+    B) in call order: the forward under the ``dropout`` key that
+    ``training_losses_and_stats`` folds in, every ``_drop_path`` call seen
+    through ``intercepted``."""
+    fwd = lambda p, images, hw: module.apply({"params": p}, images, hw, method=jax_det.OpensetRCNNModule.features,
+                                             rngs={"dropout": jax.random.fold_in(key, 7)})
+    _, kept = intercepted(fwd, (params, batch.images, batch.image_hw), dropped_branches)
+    return torch.from_numpy(np.stack([m for _, m in kept]))
+
+
+def jax_and_port_step(config, roi_batch=None, drop_path=False, f32_acc=True):
     """One training step of the config file ``config`` in JAX
-    (``jax.value_and_grad``, and again with the f32-summed RoIAlign
-    backward) and in the port, from the same parameters and draws;
-    ``roi_batch`` overrides the RoIs sampled per image."""
+    (``jax.value_and_grad``, and, with ``f32_acc``, again with the f32-summed
+    RoIAlign backward) and in the port, from the same parameters and draws;
+    ``roi_batch`` overrides the RoIs sampled per image; ``drop_path`` hands
+    the port JAX's drop-path masks (``jax_drop_path_masks``)."""
     rng = np.random.RandomState(0)
     cfg = load_cfg(jax_cfg, config, roi_batch)
     spec = jax_det.ModelSpec.from_cfg(cfg, jax_det.opendet_id_map(81, 20))
@@ -155,9 +202,11 @@ def jax_and_port_step(config, roi_batch=None):
 
     (_, (losses, stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     want = jax.tree.map(np.array, (losses, stats, grads))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_heads, "multilevel_roi_align_batched", roi_align_with_f32_backward)
-        f32_grads = jax.tree.map(np.array, jax.jit(jax.grad(lambda p: loss_fn(p)[0]))(params))
+    f32_grads = None
+    if f32_acc:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_heads, "multilevel_roi_align_batched", roi_align_with_f32_backward)
+            f32_grads = jax.tree.map(np.array, jax.jit(jax.grad(lambda p: loss_fn(p)[0]))(params))
 
     pspec = port_det.ModelSpec.from_cfg(load_cfg(port_cfg, config, roi_batch))
     model = port_det.OpensetRCNN(pspec)
@@ -166,6 +215,8 @@ def jax_and_port_step(config, roi_batch=None):
     trainable = freeze(model, pspec.freeze_at)
     rpn_key, roi_key = jax.random.split(key)
     uniforms = {"rpn": rpn_uniforms(rpn_key, len(anchors)), "roi": roi_uniforms(roi_key, sum(level_sizes) + G)}
+    if drop_path:
+        uniforms["drop_path"] = jax_drop_path_masks(module, params, batch, key)
     port_batch = PortBatch(torch.from_numpy(images), torch.from_numpy(IMAGE_HW),
                            PortGT(torch.from_numpy(boxes), torch.from_numpy(classes), torch.from_numpy(valid)))
     got_losses, got_stats = port_det.training_losses_and_stats(
@@ -173,8 +224,9 @@ def jax_and_port_step(config, roi_batch=None):
     sum(got_losses.values()).backward()
     keys = model.state_dict().keys()
     return dict(want=want, want_grads=state_dict_from_jax(want[2], keys),
-                f32_acc_grads=state_dict_from_jax(f32_grads, keys),
-                losses=got_losses, stats=got_stats, model=model, trainable=trainable)
+                f32_acc_grads=None if f32_grads is None else state_dict_from_jax(f32_grads, keys),
+                losses=got_losses, stats=got_stats, model=model, trainable=trainable, params=params,
+                module=module, spec=spec, pspec=pspec, images=images, uniforms=uniforms, jax_mask=mask, cfg=cfg)
 
 
 def test_losses_and_stats_match_jax(step):
