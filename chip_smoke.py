@@ -105,7 +105,26 @@ In order it
      and K4 launched; then --resume to 20 without evals, whose steady steps
      give the loop's img/s (beside Trainer.step alone) and whose last two
      steps, profiled, the device idle share (profiled, and their busy time
-     against the unprofiled steps' span).
+     against the unprofiled steps' span);
+ 16. weights: MODEL.WEIGHTS in the JAX package's formats on the production
+     config: a seeded model with FrozenBN calibrated, written as a d2 .pth
+     (fc1 permuted back to CHW), a caffe2 .pkl of its backbone (BN fused) and
+     a JAX-layout .npz, each loaded through load_weights_file bitwise to its
+     source; Predictor on the .pth bitwise Predictor on the state dict
+     (batch 8, K1 1 and K4 2 launches); one Trainer step from the .pkl
+     weights bitwise one from the same state dict (K3, K1, K2 bf16);
+ 17. predict: python -m openset_rcnn_tpu_torch.tools.predict (its main) with
+     --viz on 8 synthetic 800x1200 JPEGs and the .pth: each JSON equal to
+     Predictor + finalize_serve_image on the same pixels, overlays written,
+     K1 and K4 launched; the CLI's img/s beside Predictor alone;
+ 18. export: python -m openset_rcnn_tpu_torch.tools.export_serving (its
+     main) at batch 8 with the .pth, single program and --split, loaded
+     back and run under entry_numerics on the serve batch: integers and
+     masks exactly the live Predictor's, boxes and scores within
+     tests/test_export_serving.py's tolerances; the loaded programs launch
+     K1 and K4 (counted, and named by torch.profiler); sizes and ms/batch
+     beside Predictor's. Phases 16-18 share a temporary directory, removed
+     at the end.
 Each path is driven with every launch count at 0 just before it and read
 just after. The entry points set their own numerics (no TF32, no bf16
 reduced-precision reductions; deterministic cuDNN in the train step): the
@@ -120,8 +139,9 @@ repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --timings [ROOT]
 
-times only K3 and K2 f32 at the shapes of phases 5 and 6 (event and device
-time, no gates), with the openset_rcnn_tpu_torch package of ROOT (default:
+times only K1 and K4 at the shapes of phases 3 and 4 and K3 and K2 f32 at
+those of phases 5 and 6 (event and device time, no gates; K1 and K4 also
+after a profiler session), with the openset_rcnn_tpu_torch package of ROOT (default:
 this checkout), so that two versions of the kernels are timed by one script
 in one call: run it on a checkout of each.
 
@@ -254,19 +274,26 @@ def clustered_boxes(torch, g, B, R, dev):
     return (base + (u(B, R, 4) - 0.5) * 0.4 * side).contiguous()
 
 
-def phase_roi_align(torch, dev):
-    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
+def serve_roi_case(torch, dev):
+    """K1's inputs at the serving shapes: bf16 P2-P5 of the 832x1344 bucket
+    (C=256), the per-level top-1000 over P2-P6 RoIs per image, their levels."""
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels
 
     g = torch.Generator(device=dev).manual_seed(1)
     H, W = BUCKET
-    R = 4 * 1000 + math.ceil(H / 64) * math.ceil(W / 64)  # per-level top-1000 over P2-P6
-    C = 256
-    feats = [
-        torch.randn(BATCH, math.ceil(H / s), math.ceil(W / s), C, generator=g, device=dev).to(torch.bfloat16)
-        for s in STRIDES
-    ]
+    R = 4 * 1000 + math.ceil(H / 64) * math.ceil(W / 64)
+    feats = [torch.randn(BATCH, math.ceil(H / s), math.ceil(W / s), 256, generator=g, device=dev).to(torch.bfloat16)
+             for s in STRIDES]
     boxes = roi_boxes(torch, g, BATCH, R, dev)
-    levels = assign_levels(boxes)
+    return feats, boxes, assign_levels(boxes)
+
+
+def phase_roi_align(torch, dev):
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
+
+    feats, boxes, levels = serve_roi_case(torch, dev)
+    H, W = BUCKET
+    R, C = boxes.shape[1], feats[0].shape[-1]
     got = roi_align(feats, boxes, levels, STRIDES)
     want = roi_align_plain(feats, boxes, levels, STRIDES)
     torch.cuda.synchronize()
@@ -494,10 +521,7 @@ def phase_serve(torch, dev, cfg, label):
     t0 = time.perf_counter()
     predictor = Predictor(cfg, seed=0)
     check(predictor.device.type == "cuda", "Predictor did not choose the GPU")
-    g = torch.Generator(device=dev).manual_seed(4)
-    H, W = BUCKET
-    images = torch.randint(0, 256, (BATCH, H, W, 3), dtype=torch.uint8, generator=g, device=dev)
-    image_hw = torch.tensor(IMAGE_HW[:BATCH], dtype=torch.float32)
+    images, image_hw = serve_batch(torch, dev)
     for _ in range(SERVE_WARMUP):
         predictor(images, image_hw)
     torch.cuda.synchronize()
@@ -550,6 +574,14 @@ def phase_serve(torch, dev, cfg, label):
           f"the caller's, before and after {json.dumps(flags['outside'])}", flush=True)
     return launches, dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms, stages_ms=stages, peak_gb=peak_gb,
                           device_idle_share=profile["idle_share"], flags_inside=flags["inside"])
+
+
+def serve_batch(torch, dev):
+    """The serve paths' batch: 8 images of random uint8 pixels on the card,
+    padded to 832x1344, with the true sizes of ``IMAGE_HW``."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    images = torch.randint(0, 256, (BATCH, *BUCKET, 3), dtype=torch.uint8, generator=g, device=dev)
+    return images, torch.tensor(IMAGE_HW[:BATCH], dtype=torch.float32)
 
 
 def observed_flags(run, want, label):
@@ -885,11 +917,24 @@ def phase_roi_align_bwd_adaptive(torch, dev):
 
 
 def timings(torch, dev):
-    """K3 and K2 f32 only, no gates (``--timings``): the wrapper's time
-    (CUDA events) and the device time per call (profiler)."""
-    from openset_rcnn_tpu_torch.ops.roi_align import roi_align_bwd
+    """K1, K4, K3 and K2 f32 only, no gates (``--timings``): the wrapper's
+    time (CUDA events) and the device time per call (profiler). K1 and K4 at
+    the serving shapes of phases 3 and 4 (K4 per serve batch: N=2000 then
+    N=1000), each timed before and after a torch.profiler session, as
+    phase 4 times its second case."""
+    from openset_rcnn_tpu_torch.ops.nms import nms_keep
+    from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
 
     out = {}
+    feats, boxes, levels = serve_roi_case(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [nms_case(torch, g, N, dev) for N in (2000, 1000)]
+    for name, run in (("roi_align_fwd", lambda: roi_align(feats, boxes, levels, STRIDES)),
+                      ("nms_keep_per_batch", lambda: [nms_keep(b, v, 0.5) for b, v in cases])):
+        ms = time_ms(torch, run, 20)
+        events = device_events(torch, run, 20)
+        out[name] = dict(ms=ms, device_ms=sum(t for _, t, _ in events) / 20, ms_after_profiler=time_ms(torch, run, 20))
+    del feats, boxes, levels
     for B in (TRAIN_BATCH, TRAIN_BATCH_BF16):
         out[f"iou_match_b{B}"] = iou_timings(torch, *iou_case(torch, dev, B))
     H, W = BUCKET
@@ -1783,6 +1828,334 @@ def do_train_run(torch, dev, step_alone_img_per_s, work):
                           iterations=iterations + timed_iterations, checkpoints=saved, losses=losses)
 
 
+C2_BRANCH = {"conv1": "branch2a", "conv2": "branch2b", "conv3": "branch2c", "shortcut": "branch1"}
+
+
+def caffe2_backbone(torch, source):
+    """(the caffe2 ImageNet-pkl entries of the backbone of the port state
+    ``source``: each convolution, and its FrozenBN statistics fused into
+    scale and bias as caffe2 keeps them; the port entries they load to:
+    the same, with identity statistics)."""
+    pkl, loads_to = {}, {}
+    for key, weight in source.items():
+        m = re.fullmatch(r"backbone\.(?:(res\d)_block(\d+)\.(conv\d|shortcut)|stem_conv)\.weight", key)
+        if not m:
+            continue
+        if m[1]:
+            name = bn_name = f"{m[1]}_{m[2]}_{C2_BRANCH[m[3]]}"
+            bn = f"backbone.{m[1]}_block{m[2]}." + ("shortcut_bn" if m[3] == "shortcut" else f"bn{m[3][-1]}")
+        else:
+            name, bn_name, bn = "conv1", "res_conv1", "backbone.stem_bn"
+        scale = source[f"{bn}.scale"] / torch.sqrt(source[f"{bn}.var"] + 1e-5)
+        bias = source[f"{bn}.bias"] - source[f"{bn}.mean"] * scale
+        pkl.update({f"{name}_w": weight.numpy(), f"{bn_name}_bn_s": scale.numpy(), f"{bn_name}_bn_b": bias.numpy()})
+        loads_to.update({key: weight, f"{bn}.scale": scale, f"{bn}.bias": bias,
+                         f"{bn}.mean": torch.zeros_like(scale), f"{bn}.var": torch.ones_like(scale)})
+    return pkl, loads_to
+
+
+def jax_flat(torch, state):
+    """The JAX package's flat 'a/b/c' parameter names and layouts of a port
+    R50-FPN state_dict (``utils/jax_params.py`` inverted: OIHW -> HWIO,
+    (O, I) -> (I, O), ``weight`` -> ``kernel``): what its
+    ``load_npz_into_params`` reads."""
+    out = {}
+    for key, value in state.items():
+        value = value.numpy()
+        *path, leaf = key.split(".")
+        if leaf == "weight":
+            value = value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+            leaf = "kernel"
+        out["/".join([*path, leaf])] = value
+    return out
+
+
+def state_equal(torch, got, want, keys=None):
+    """The keys (of ``keys``, default all of ``want``) whose tensors differ."""
+    return [k for k in (keys or want) if not torch.equal(got[k].cpu(), want[k].cpu())]
+
+
+def phase_weights(torch, dev, work):
+    """MODEL.WEIGHTS in the JAX package's formats, on the production config
+    at full width: a seeded port model with FrozenBN calibrated on the serve
+    batch is written as a d2 ``.pth`` (``torch_weights.to_d2``, fc1's
+    columns back in CHW order), a caffe2 ``.pkl`` of its backbone (BN fused
+    into scale and bias) and a JAX-layout ``.npz``; each loads through
+    ``load_weights_file`` into a state dict bitwise equal to the source (the
+    backbone, with identity statistics, for the ``.pkl``). Then the path:
+    ``Predictor`` on ``MODEL.WEIGHTS x.pth`` at batch 8 against ``Predictor``
+    on the state dict (bitwise, K1 1 and K4 2 launches a batch), and one
+    ``Trainer`` step (batch 4, bench.py's batch) from the ``.pkl``-loaded
+    weights against one from the same state dict (bitwise; K3, K1, K2)."""
+    import pickle
+
+    import numpy as np
+    from openset_rcnn_tpu_torch.engine.checkpoint import Checkpointer, load_weights_file
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+    from openset_rcnn_tpu_torch.utils.torch_weights import to_d2
+
+    t0 = time.perf_counter()
+    cfg = load_cfg(CONFIG_BF16)
+    spec = ModelSpec.from_cfg(cfg)
+    images, image_hw = serve_batch(torch, dev)
+    model = build_model(spec, dev, seed=0)
+    calibrate_frozen_bn(torch, model, images, image_hw.to(dev))
+    source = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    paths = {"pth": work / "model_final.pth", "pkl": work / "R-50.pkl", "npz": work / "weights.npz"}
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in to_d2(source).items()}, "iteration": 0}, paths["pth"])
+    caffe2, backbone = caffe2_backbone(torch, source)
+    with open(paths["pkl"], "wb") as f:
+        pickle.dump({"model": caffe2, "__author__": "chip_smoke"}, f)
+    np.savez(paths["npz"], **jax_flat(torch, source))
+    # the targets start from another init (seed 1), so a key that does not load shows;
+    # what the .pkl loads to: its backbone over the target's own init
+    fused = {**build_model(spec, "cpu", seed=1).state_dict(), **backbone}
+    check(set(backbone) == {k for k in source if k.startswith("backbone.")}, "weights: the .pkl misses backbone keys")
+    sizes = {k: p.stat().st_size / 1e6 for k, p in paths.items()}
+    for kind, path in paths.items():
+        target = build_model(spec, "cpu", seed=1)
+        load_weights_file(str(path), target)
+        want = fused if kind == "pkl" else source
+        differ = state_equal(torch, target.state_dict(), want)
+        check(not differ, f"weights: {kind} loaded {len(differ)} tensors unlike the source, e.g. {differ[:3]}")
+    print(f"weights: the production model (FrozenBN calibrated) written as d2 .pth, caffe2 .pkl (backbone) and "
+          f".npz ({json.dumps({k: round(v, 1) for k, v in sizes.items()})} MB); each loads through "
+          f"load_weights_file bitwise to its source; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    from_pth = Predictor(cfg, seed=1)
+    load_weights_file(str(paths["pth"]), from_pth.model)
+    from_state = Predictor(cfg, state_dict=source)
+    from_pth(images, image_hw)  # warm-up
+    from_state(images, image_hw)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = from_pth(images, image_hw)
+    launches = read_launches()
+    want = from_state(images, image_hw)
+    torch.cuda.synchronize()
+    expected = {name: 0 for name in launches}
+    expected.update(roi_align_fwd=1, nms_keep=2)
+    check(launches == expected, f"weights: Predictor launches {launches}, expected {expected}")
+    for name in got._fields:
+        check(torch.equal(getattr(got, name), getattr(want, name)), f"weights: Predictor {name} from .pth != from state")
+    del from_pth, from_state
+    torch.cuda.empty_cache()
+
+    host = bench_batch(torch, TRAIN_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+    a = Trainer(cfg, seed=1)
+    Checkpointer(str(work / "output")).resume_or_load(a.state, str(paths["pkl"]), resume=False)
+    differ = state_equal(torch, a.model.state_dict(), fused)
+    check(not differ, f"weights: the .pkl-loaded Trainer differs from its state dict in {differ[:3]}")
+    b = Trainer(cfg, state_dict=fused, seed=1)
+    step_launches = {}
+    for label, trainer in (("pkl", a), ("state", b)):
+        reset_launches()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_launches[label] = read_launches()
+        check(all(math.isfinite(float(v)) for v in metrics.values()), f"weights: non-finite {label} step metrics")
+    fwd, bwd = train_kernels(cfg)
+    expected = {name: 0 for name in launches}
+    expected.update({fwd: 1, bwd: 1, "iou_match": 2})
+    check(step_launches["pkl"] == expected, f"weights: step launches {step_launches['pkl']}, expected {expected}")
+    params_b = dict(b.model.named_parameters())
+    differ = [n for n, p in a.model.named_parameters() if not torch.equal(p, params_b[n])]
+    check(not differ, f"weights: the step from .pkl weights differs from the step from the state dict in {differ[:3]}")
+    print(f"weights: Predictor on MODEL.WEIGHTS .pth == Predictor on the state dict, bitwise (batch {BATCH}, "
+          f"{int(got.valid.sum())} detections); one Trainer step from the .pkl weights == one from the same state "
+          f"dict, bitwise ({sum(1 for _ in a.model.parameters())} parameter tensors); launches per batch "
+          f"{json.dumps(launches)}, per step {json.dumps(step_launches['pkl'])}", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    total = {k: launches[k] + step_launches["pkl"][k] for k in launches}
+    return total, dict(sizes_mb=sizes, predictor_bitwise=True, step_bitwise=True), str(paths["pth"])
+
+
+def phase_predict(torch, dev, work, weights):
+    """``python -m openset_rcnn_tpu_torch.tools.predict`` in this process
+    (``main``) with ``--viz`` on 8 synthetic 800x1200 JPEGs, the production
+    config and ``MODEL.WEIGHTS`` the ``.pth`` of the weights phase: one JSON
+    and one overlay per image, each JSON equal to ``Predictor`` +
+    ``finalize_serve_image`` on the same decoded pixels, K1 and K4 launched
+    (one image a batch). Prints the CLI's img/s (model build and weights
+    included) beside ``Predictor`` alone on the same decoded images."""
+    import cv2
+    import numpy as np
+    from openset_rcnn_tpu_torch.data import DetectionTransform
+    from openset_rcnn_tpu_torch.engine.checkpoint import load_weights_file
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.evaluation.postprocess import PostprocessConfig, finalize_serve_image
+    from openset_rcnn_tpu_torch.tools import predict
+
+    rng = np.random.RandomState(31)
+    inputs = work / "images"
+    inputs.mkdir()
+    for i in range(BATCH):
+        # smooth blobs over noise: JPEG content with edges and flat regions
+        img = cv2.GaussianBlur(rng.randint(0, 256, (*EVAL_HW, 3)).astype(np.uint8), (0, 0), 3 + i)
+        cv2.imwrite(str(inputs / f"img{i}.jpg"), cv2.normalize(img, None, 0, 255, cv2.NORM_MINMAX))
+    out = work / "predictions"
+    argv = ["--config-file", str(CONFIG_BF16), "--input", str(inputs), "--output", str(out), "--viz",
+            "MODEL.WEIGHTS", weights, "MODEL.RPN.DELTA_BIAS_INIT", "1.0"]
+    reset_launches()
+    t0 = time.perf_counter()
+    results = predict.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(roi_align_fwd=BATCH, nms_keep=2 * BATCH)
+    check(launches == expected, f"predict launches {launches}, expected {expected}")
+    files = sorted(p.name for p in out.iterdir())
+    check(files == sorted([f"img{i}.json" for i in range(BATCH)] + [f"img{i}_viz.jpg" for i in range(BATCH)]),
+          f"predict wrote {files}")
+
+    cfg = load_cfg(CONFIG_BF16)
+    names, table = predict.serving_classes(cfg)
+    post_cfg = PostprocessConfig.from_cfg(cfg, cfg.OPENDET_BENCHMARK, table)
+    predictor = Predictor(cfg, post_cfg=post_cfg)
+    load_weights_file(weights, predictor.model)
+    transform = DetectionTransform(min_sizes=(cfg.INPUT.MIN_SIZE_TEST,), max_size=cfg.INPUT.MAX_SIZE_TEST,
+                                   bucket_hw=tuple(cfg.TPU.TEST_BUCKET), max_gt=1, flip=False,
+                                   fmt=cfg.INPUT.FORMAT, interp=cfg.TPU.RESIZE_INTERP)
+    examples = [transform({"file_name": str(inputs / f"img{i}.jpg"), "image_id": i}, np.random.RandomState(0))
+                for i in range(BATCH)]
+    detections = 0
+    for i, ex in enumerate(examples):
+        dets = predictor(torch.from_numpy(ex.image[None]), torch.tensor([ex.image_hw], dtype=torch.float32))
+        final = finalize_serve_image(*(getattr(dets, k)[0].cpu().numpy() for k in ("boxes", "scores", "classes",
+                                                                                      "valid")),
+                                     ex.image_hw, ex.original_hw, post_cfg)
+        want = {"file_name": str(inputs / f"img{i}.jpg"), "boxes_xyxy": final.boxes.round(2).tolist(),
+                "scores": final.scores.round(4).tolist(), "classes": final.classes.tolist(),
+                "names": ["unknown" if int(c) == post_cfg.unknown_id else names[int(c)] for c in final.classes]}
+        got = json.loads((out / f"img{i}.json").read_text())
+        check(got == want, f"predict: img{i}.json differs from Predictor + finalize_serve_image")
+        check(results[want["file_name"]] == want, f"predict: main's record of img{i} differs from its JSON")
+        check(cv2.imread(str(out / f"img{i}_viz.jpg")).shape == (*EVAL_HW, 3), f"predict: img{i}_viz.jpg")
+        detections += len(want["scores"])
+    one = [(torch.from_numpy(ex.image[None]).to(dev), torch.tensor([ex.image_hw], dtype=torch.float32))
+           for ex in examples]
+    alone_ms = time_ms(torch, lambda: [predictor(im, hw) for im, hw in one], 3) / BATCH
+    print(f"predict: the CLI wrote {BATCH} JSON files and overlays ({detections} detections), each equal to "
+          f"Predictor + finalize_serve_image on the same pixels; CLI {BATCH / cli_s:.2f} img/s over {cli_s:.2f} s "
+          f"(model build, weights, JPEG decode, resize, JSON and overlays included) beside Predictor alone "
+          f"{1e3 / alone_ms:.2f} img/s at batch 1 ({alone_ms:.2f} ms an image); launches {json.dumps(launches)}",
+          flush=True)
+    del predictor
+    torch.cuda.empty_cache()
+    return launches, dict(cli_img_per_s=BATCH / cli_s, cli_s=cli_s, predictor_alone_img_per_s=1e3 / alone_ms,
+                          detections=detections)
+
+
+EXPORT_TOL = {"boxes": dict(rtol=1e-3, atol=1e-2), "scores": dict(rtol=1e-4, atol=2e-3)}  # tests/test_export_serving.py
+
+
+def phase_export(torch, dev, work, weights):
+    """``python -m openset_rcnn_tpu_torch.tools.export_serving`` in this
+    process on the production config at batch 8 with the weights phase's
+    ``.pth``, single program and ``--split``; both artifacts loaded back
+    (``torch.export.load``) and run under ``entry_numerics`` on the serve
+    batch: integer and boolean outputs exactly the live ``Predictor``'s,
+    boxes and scores within the JAX round trip's tolerances; the loaded
+    programs' runs count K1 1 and K4 2 launches a batch, and
+    ``torch.profiler`` sees the kernels by name. Prints each artifact's
+    size and ms per batch beside ``Predictor``'s."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.engine.checkpoint import load_weights_file
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.tools import export_serving
+    from torch.profiler import ProfilerActivity, profile
+
+    out = str(work / "serving.pt2")
+    argv = ["--config-file", str(CONFIG_BF16), "--batch", str(BATCH), "--out", out,
+            "MODEL.WEIGHTS", weights, "MODEL.RPN.DELTA_BIAS_INIT", "1.0"]
+    t0 = time.perf_counter()
+    written = export_serving.main(argv)
+    single_s = time.perf_counter() - t0
+    written += export_serving.main(argv[:6] + ["--split"] + argv[6:])
+    split_s = time.perf_counter() - t0 - single_s
+    sizes = {Path(p).name: Path(p).stat().st_size / 1e6 for p in written}
+    programs = {Path(p).name: export_serving.load(p) for p in written}
+    cfg = load_cfg(CONFIG_BF16)
+    predictor = Predictor(cfg)
+    load_weights_file(weights, predictor.model)
+    images, image_hw = serve_batch(torch, dev)
+    images, image_hw = images.float(), image_hw.to(dev)
+    live = predictor(images, image_hw)
+    fwd, casc = programs["serving.pt2.fwd"], programs["serving.pt2.casc"]
+    runs = {"export": lambda: programs["serving.pt2"](images, image_hw),
+            "export_split": lambda: casc(*fwd(images, image_hw))}
+    paths, result = {}, dict(sizes_mb=sizes, export_s=single_s, export_split_s=split_s)
+    for label, run in runs.items():
+        with torch.inference_mode(), entry_numerics():
+            run()  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            got = run()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expected = {name: 0 for name in launches}
+            expected.update(roi_align_fwd=1, nms_keep=2)
+            check(launches == expected, f"{label}: the loaded program's launches {launches}, expected {expected}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            kernels = {e.key for e in prof.key_averages()}
+            seen = [k for k in ("roi_align_fwd_kernel", "nms_iou_mask_kernel", "nms_walk_kernel")
+                    if any(k in key for key in kernels)]
+            check(len(seen) == 3, f"{label}: the profiler saw {seen} of the port's kernels")
+            ms = time_ms(torch, run, SERVE_BATCHES)
+        diffs = {}
+        for name, value in zip(live._fields, got):
+            want = getattr(live, name)
+            if name in EXPORT_TOL:
+                torch.testing.assert_close(value, want, **EXPORT_TOL[name])
+                diffs[name] = float((value - want).abs().max())
+            else:
+                check(torch.equal(value, want), f"{label}: {name} differs from the live Predictor")
+        bitwise = all(torch.equal(v, getattr(live, n)) for n, v in zip(live._fields, got))
+        paths[label] = launches
+        result[label] = dict(ms_per_batch=ms, img_per_s=BATCH * 1e3 / ms, max_abs_diff=diffs, bitwise=bitwise)
+        print(f"{label}: the loaded program against the live Predictor: integers and masks exact, largest "
+              f"differences {json.dumps(diffs)}"
+              f"{' (bitwise)' if bitwise else ''}; launches {json.dumps(launches)}; the profiler saw {seen}; "
+              f"{ms:.2f} ms/batch ({BATCH * 1e3 / ms:.2f} img/s)", flush=True)
+    with torch.inference_mode():
+        result["predictor_ms_per_batch"] = time_ms(torch, lambda: predictor(images, image_hw), SERVE_BATCHES)
+    print(f"export: written in {single_s:.1f} s (single) and {split_s:.1f} s (--split), sizes (MB) "
+          f"{json.dumps({n: round(v, 1) for n, v in sizes.items()})}; Predictor on the same batch "
+          f"{result['predictor_ms_per_batch']:.2f} ms/batch", flush=True)
+    del programs, predictor
+    torch.cuda.empty_cache()
+    return paths, result
+
+
+def phase_tools(torch, dev):
+    """The weights, predict and export phases in one temporary directory
+    (under TMPDIR, removed at the end, pass or fail): {path: launches},
+    {path: results}."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        paths, results = {}, {}
+        paths["weights"], results["weights"], weights = phase_weights(torch, dev, work)
+        paths["predict"], results["predict"] = phase_predict(torch, dev, work, weights)
+        export_paths, results["export"] = phase_export(torch, dev, work, weights)
+        paths.update(export_paths)
+        return paths, results
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def step_timings(torch, dev):
     """``--step-timings``: ms/step of train (f32, batch 4) and train_bf16
     (batch 16), one profiled f32 step, and whether two steps repeat bitwise."""
@@ -1908,6 +2281,9 @@ def main():
     paths["train_bf16"], results["train_bf16"] = phase_train(torch, dev, load_cfg(CONFIG_BF16), "train_bf16",
                                                              TRAIN_BATCH_BF16, calibrate=True)
     paths["do_train"], results["do_train"] = phase_do_train(torch, dev, results["train_bf16"]["img_per_s"])
+    tool_paths, tool_results = phase_tools(torch, dev)
+    paths.update(tool_paths)
+    results.update(tool_results)
     # launches: from the path of this slice that runs the kernel (eval: K1,
     # K4; train: K2 f32, K3; train_bf16: K2 bf16; the adaptive modes of K1
     # and K2 f32: parity_eval and train_parity; K5, which no path of the

@@ -6,11 +6,15 @@ Port of ``openset_rcnn_tpu/engine/checkpoint.py`` (Orbax there): saves
 marker, and supports
   * --resume: continue from the latest checkpoint (restores the step, the
     parameters, the buffers and the SGD momentum);
-  * weights-only load (``MODEL.WEIGHTS``): a port checkpoint's model weights.
+  * weights-only load (``MODEL.WEIGHTS``, ``load_weights_file``): a port
+    checkpoint (``.pt``), the JAX package's flat ``.npz``, or a d2/caffe2
+    ``.pkl``/``.pth`` (``utils/torch_weights.py``), dispatched as
+    ``openset_rcnn_tpu/engine/checkpoint.py:82-99`` does.
 
-The JAX package's other weight formats (Orbax directories, converted
-``.npz``, d2 ``.pkl``/``.pth``) come with the weight converters (ROADMAP.md
-queue A item 6) and raise ``NotImplementedError`` until then.
+An Orbax checkpoint directory does not load: Orbax imports JAX, which the
+port never imports, and Orbax writes OCDBT/zarr3 through ``tensorstore``.
+The JAX side saves its parameters as an ``.npz`` instead (see
+``ORBAX_REASON``), which both packages read.
 """
 from __future__ import annotations
 
@@ -23,7 +27,11 @@ from torch import nn
 
 logger = logging.getLogger(__name__)
 
-UNPORTED_FORMATS = (".npz", ".pkl", ".pth")
+ORBAX_REASON = (
+    "Orbax checkpoint directories do not load in the PyTorch port: Orbax imports JAX, which the port never "
+    "imports, and it writes OCDBT/zarr3 through tensorstore. Save the JAX parameters as a flat 'a/b/c' .npz "
+    "instead, which both packages read: np.savez(path, **{'/'.join(str(k.key) for k in p): np.asarray(v) "
+    "for p, v in jax.tree_util.tree_flatten_with_path(params)[0]})")
 
 
 class Checkpointer:
@@ -82,23 +90,32 @@ class Checkpointer:
 
 
 def load_weights_file(path: str, model: nn.Module) -> nn.Module:
-    """Load model weights into ``model`` from a port checkpoint (``.pt``,
-    its ``model`` entry). Missing keys keep their initialized values;
-    unknown keys and shape mismatches raise. The JAX package's other formats
-    raise ``NotImplementedError``."""
-    if os.path.isdir(path) or path.endswith(UNPORTED_FORMATS):
-        raise NotImplementedError(
-            f"weights {path!r}: Orbax directories, .npz, .pkl and .pth weights are not ported yet; they come "
-            "with the weight converters (ROADMAP.md queue A item 6). A port checkpoint (.pt) loads.")
-    if not path.endswith(".pt"):
+    """Load model weights into ``model``: a port checkpoint (``.pt``, its
+    ``model`` entry; unknown keys raise), the JAX package's flat ``.npz``
+    (``torch_weights.load_npz``), or a d2 ``.pth`` / d2 or caffe2 ``.pkl``
+    (``torch_weights.convert_torch_checkpoint``). Missing keys keep their
+    initialized values; shape mismatches raise. An Orbax directory raises
+    ``NotImplementedError`` (``ORBAX_REASON``), another file ``ValueError``."""
+    if os.path.isdir(path):
+        raise NotImplementedError(f"weights {path!r}: {ORBAX_REASON}")
+    if path.endswith(".npz"):
+        from ..utils.torch_weights import load_npz
+
+        model.load_state_dict(load_npz(path, model))
+    elif path.endswith((".pkl", ".pth")):
+        from ..utils.torch_weights import convert_torch_checkpoint
+
+        model.load_state_dict(convert_torch_checkpoint(path, model))
+    elif path.endswith(".pt"):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if "model" not in ckpt:
+            raise ValueError(f"weights {path!r}: not a port checkpoint (no 'model' entry)")
+        missing, unexpected = model.load_state_dict(ckpt["model"], strict=False)
+        if unexpected:
+            raise KeyError(f"weights {path!r}: keys the model does not have: {unexpected[:5]}")
+        if missing:
+            logger.info("weights %s: %d keys keep their initialized values", path, len(missing))
+    else:
         raise ValueError(f"unsupported weights file: {path}")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if "model" not in ckpt:
-        raise ValueError(f"weights {path!r}: not a port checkpoint (no 'model' entry)")
-    missing, unexpected = model.load_state_dict(ckpt["model"], strict=False)
-    if unexpected:
-        raise KeyError(f"weights {path!r}: keys the model does not have: {unexpected[:5]}")
-    if missing:
-        logger.info("weights %s: %d keys keep their initialized values", path, len(missing))
     logger.info("Loaded weights %s", path)
     return model

@@ -28,6 +28,26 @@ from ..structures import Proposals, RawDetections
 from .postprocess import PostprocessConfig
 
 
+def serve_cascade(raw: RawDetections, pc: PostprocessConfig, keep_fn: KeepFn = nms_keep) -> ServeDetections:
+    """The fused cascade with the settings of ``pc``: ``Predictor.cascade``
+    and the exported serving program (``tools/export_serving.py``)."""
+    return fused_cascade(
+        raw,
+        obj_thresh=pc.obj_score_thresh,
+        unk_thr=pc.unk_thr,
+        known_score_thresh=pc.known_score_thresh,
+        known_nms_thresh=pc.known_nms_thresh,
+        known_topk=pc.known_topk,
+        unknown_score_thresh=pc.unknown_score_thresh,
+        unknown_nms_thresh=pc.unknown_nms_thresh,
+        unknown_topk=pc.unknown_topk,
+        unknown_id=pc.unknown_id,
+        stage1_topk=pc.detections_per_image,
+        max_known_candidates=max(2 * pc.detections_per_image, 2000),
+        keep_fn=keep_fn,
+    )
+
+
 class _OnDevice:
     """The detector on one device with its anchors per image bucket."""
 
@@ -85,22 +105,7 @@ class Predictor(_OnDevice):
     @torch.inference_mode()
     @entry_numerics()
     def cascade(self, raw: RawDetections, keep_fn: KeepFn = nms_keep) -> ServeDetections:
-        pc = self.post_cfg
-        return fused_cascade(
-            raw,
-            obj_thresh=pc.obj_score_thresh,
-            unk_thr=pc.unk_thr,
-            known_score_thresh=pc.known_score_thresh,
-            known_nms_thresh=pc.known_nms_thresh,
-            known_topk=pc.known_topk,
-            unknown_score_thresh=pc.unknown_score_thresh,
-            unknown_nms_thresh=pc.unknown_nms_thresh,
-            unknown_topk=pc.unknown_topk,
-            unknown_id=pc.unknown_id,
-            stage1_topk=pc.detections_per_image,
-            max_known_candidates=max(2 * pc.detections_per_image, 2000),
-            keep_fn=keep_fn,
-        )
+        return serve_cascade(raw, self.post_cfg, keep_fn)
 
     @entry_numerics()
     def __call__(self, images: torch.Tensor, image_hw: torch.Tensor, mark: Mark = None) -> ServeDetections:

@@ -10,7 +10,11 @@ keep mask in sorted order; nothing is filtered dynamically.
   kernel's oracle.
 * ``nms_keep`` is the wrapper: plain version for CPU tensors, the CUDA kernel
   (``csrc/nms_keep.cu``: an IoU bitmask pass, then the greedy walk, both for
-  all images) for CUDA tensors. There is no fallback.
+  all images) for CUDA tensors. There is no fallback. It goes through the
+  PyTorch operator ``openset_rcnn::nms_keep`` (``nms_keep_op``: CPU and CUDA
+  implementations and a fake one for tracing), so ``torch.export`` records
+  K4 as one node, not the plain version's unrolled scan, and a loaded
+  exported program launches the kernel as eager code does.
 """
 from __future__ import annotations
 
@@ -64,17 +68,15 @@ _SIGNATURE = {
 }
 
 
-def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
-    """Greedy keep mask (B, N) bool over score-sorted boxes (B, N, 4) f32.
+# K4 as a PyTorch operator, ``torch.ops.openset_rcnn.nms_keep``, registered as
+# ops/roi_align.py registers K1 (see there): the plain version for CPU
+# tensors, the launch code for CUDA tensors, shapes only for tracing.
+OPS = torch.library.Library("openset_rcnn", "FRAGMENT")
+OPS.define("nms_keep(Tensor boxes, Tensor valid, float thresh) -> Tensor")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel's two
-    passes (the IoU bitmask, then the walk). ``nms_keep.launches`` counts
-    calls: one per call, both passes together.
-    """
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, valid, thresh)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"nms_keep runs on CPU or CUDA tensors, not {boxes.device}")
+
+def _nms_keep_cuda(boxes, valid, thresh):
+    """The CUDA implementation: launches the kernel's two passes or raises."""
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, N, 4) float32, got {tuple(boxes.shape)} {boxes.dtype}")
     B, N = boxes.shape[:2]
@@ -98,6 +100,35 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.T
     _build.check(lib, "nms_keep", code)
     nms_keep.launches += 1
     return keep
+
+
+def _nms_keep_fake(boxes, valid, thresh):
+    """Shape and dtype only, for tracing (``torch.export``): no data, no
+    launch, no count."""
+    return torch.empty_like(valid)
+
+
+OPS.impl("nms_keep", nms_keep_plain, "CPU")
+OPS.impl("nms_keep", _nms_keep_cuda, "CUDA")
+torch.library.register_fake("openset_rcnn::nms_keep", _nms_keep_fake, lib=OPS)
+nms_keep_op = torch.ops.openset_rcnn.nms_keep.default
+
+
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Greedy keep mask (B, N) bool over score-sorted boxes (B, N, 4) f32.
+
+    It calls the custom operator ``openset_rcnn::nms_keep``, so eager code
+    and an exported program take one route: CPU tensors take the plain
+    version; CUDA tensors launch the kernel's two passes (the IoU bitmask,
+    then the walk). ``nms_keep.launches`` counts calls that launched it,
+    both passes together (the operator's CUDA implementation counts them, so
+    a loaded exported program counts too). Tensors on another device are
+    refused (the operator itself also takes meta and fake tensors, for
+    tracing).
+    """
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_keep runs on CPU or CUDA tensors, not {boxes.device}")
+    return nms_keep_op(boxes, valid, float(thresh))
 
 
 nms_keep.launches = 0  # calls that launched the kernel since the last reset

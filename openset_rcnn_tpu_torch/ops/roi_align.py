@@ -17,7 +17,11 @@ RoI is pooled with exact bilinear RoIAlign from the FPN level it is given.
   small at ~4.3k RoIs per image. The CPU path and the kernels' oracle.
 * ``roi_align`` is the wrapper of K1 (``roi_align_pallas_v2``): bf16 features
   in, f32 out; the plain version for CPU tensors, the CUDA kernel
-  (``csrc/roi_align_fwd.cu``) for CUDA tensors. There is no fallback.
+  (``csrc/roi_align_fwd.cu``) for CUDA tensors. There is no fallback. It
+  goes through the PyTorch operator ``openset_rcnn::roi_align_fwd``
+  (``roi_align_op``: CPU and CUDA implementations and a fake one for
+  tracing), so ``torch.export`` records K1 as one node and a loaded
+  exported program launches the kernel as eager code does.
 * ``roi_align_window`` is the counterpart of K5 (``roi_align_pallas_fwd``):
   window-fit levels, f32 or bf16 features, the output in the features' dtype
   (computed in f32, rounded once); the same CUDA source.
@@ -297,26 +301,19 @@ def _launch_fwd(fn: str, feats, boxes, levels, strides, P, S, out, *dtype_flag):
     _build.check(lib, fn, code)
 
 
-def roi_align(
-    feats: Sequence[torch.Tensor],
-    boxes: torch.Tensor,
-    levels: torch.Tensor,
-    strides: Sequence[int],
-    out_size: int = 7,
-    sampling_ratio: int = 2,
-) -> torch.Tensor:
-    """RoIAlignV2 forward (K1): (B, R, P, P, C) f32 from NHWC bf16 P2-P5,
-    each RoI from the level in ``levels``; ``sampling_ratio`` static, or
-    ``ADAPTIVE``.
+# K1 as a PyTorch operator, ``torch.ops.openset_rcnn.roi_align_fwd``: the plain
+# version for CPU tensors, the launch code for CUDA tensors, shapes only for
+# meta and fake tensors (tracing). It is registered through torch.library's
+# low-level API: ``torch.library.custom_op`` adds Python layers to every
+# call (autograd wrapping, alias checks), which made K4's ~0.09 ms calls
+# host-bound on the H100 (PERF.md §6).
+OPS = torch.library.Library("openset_rcnn", "FRAGMENT")  # ops/nms.py defines the namespace's other operator
+OPS.define("roi_align_fwd(Tensor[] feats, Tensor boxes, Tensor levels, int[] strides, int out_size, "
+           "int sampling_ratio) -> Tensor")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``roi_align.launches`` counts the static grid's launches,
-    ``roi_align.adaptive_launches`` the adaptive grid's.
-    """
-    if boxes.device.type == "cpu":
-        return roi_align_plain(feats, boxes, levels, strides, out_size, sampling_ratio)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"roi_align runs on CPU or CUDA tensors, not {boxes.device}")
+
+def _roi_align_cuda(feats, boxes, levels, strides, out_size, sampling_ratio):
+    """The CUDA implementation: launches the kernel or raises."""
     P, S = out_size, sampling_ratio
     _check_cuda_inputs(feats, boxes, levels, strides, P, S)
     B, R = boxes.shape[:2]
@@ -329,6 +326,44 @@ def roi_align(
     else:
         roi_align.launches += 1
     return out
+
+
+def _roi_align_fake(feats, boxes, levels, strides, out_size, sampling_ratio):
+    """Shape and dtype only, for tracing (``torch.export``): no data, no
+    launch, no count."""
+    B, R = boxes.shape[:2]
+    return boxes.new_empty((B, R, out_size, out_size, feats[0].shape[-1]), dtype=torch.float32)
+
+
+OPS.impl("roi_align_fwd", roi_align_plain, "CPU")
+OPS.impl("roi_align_fwd", _roi_align_cuda, "CUDA")
+torch.library.register_fake("openset_rcnn::roi_align_fwd", _roi_align_fake, lib=OPS)
+roi_align_op = torch.ops.openset_rcnn.roi_align_fwd.default
+
+
+def roi_align(
+    feats: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlignV2 forward (K1): (B, R, P, P, C) f32 from NHWC bf16 P2-P5,
+    each RoI from the level in ``levels``; ``sampling_ratio`` static, or
+    ``ADAPTIVE``.
+
+    It calls the custom operator ``openset_rcnn::roi_align_fwd``, so eager
+    code and an exported program take one route: CPU tensors take the plain
+    version; CUDA tensors launch the kernel. ``roi_align.launches`` counts
+    the static grid's launches, ``roi_align.adaptive_launches`` the adaptive
+    grid's (the operator's CUDA implementation counts them, so a loaded
+    exported program counts too). Tensors on another device are refused
+    (the operator itself also takes meta and fake tensors, for tracing).
+    """
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_align runs on CPU or CUDA tensors, not {boxes.device}")
+    return roi_align_op(list(feats), boxes, levels, [int(s) for s in strides], int(out_size), int(sampling_ratio))
 
 
 roi_align.launches = 0  # kernel launches since the last reset, static grid
@@ -591,7 +626,9 @@ class RoIAlignFunction(torch.autograd.Function):
     (bfloat16), the accumulators rounded to the features' dtype. It saves the
     boxes, the levels and the level shapes, not the features. Call as
     ``RoIAlignFunction.apply(boxes, levels, strides, out_size,
-    sampling_ratio, acc_dtype, *feats)``."""
+    sampling_ratio, acc_dtype, *feats)``. The forward goes through the
+    custom operator (``roi_align``), so training, serving and an exported
+    program reach K1 by one route; ``torch.export`` inlines the forward."""
 
     @staticmethod
     def forward(ctx, boxes, levels, strides, out_size, sampling_ratio, acc_dtype, *feats):

@@ -806,3 +806,105 @@ def test_remat_step_on_the_card_is_bitwise_the_plain_step(dev):
         params[remat] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     differ = [n for n, p in params[True].items() if not torch.equal(p, params[False][n])]
     assert not differ, differ
+
+
+# ------------------------------------------------ the custom operators (K1, K4)
+
+
+@pytest.mark.parametrize("ratio", [2, -1])  # the static grid, the adaptive one
+def test_roi_align_operator_is_bitwise_the_direct_launch(dev, ratio):
+    """``torch.ops.openset_rcnn.roi_align_fwd`` (what ``roi_align`` calls)
+    gives the launch code's result bit for bit, counted once."""
+    from openset_rcnn_tpu_torch.ops import roi_align as ops
+
+    feats, boxes = roi_inputs(dev, 2, 301, 256, seed=11)
+    levels = assign_levels(boxes)
+    direct = ops._roi_align_cuda(feats, boxes, levels, list(STRIDES), 7, ratio)
+    counts = roi_align.launches, roi_align.adaptive_launches
+    got = torch.ops.openset_rcnn.roi_align_fwd(feats, boxes, levels, list(STRIDES), 7, ratio)
+    torch.cuda.synchronize()
+    assert torch.equal(got, direct)
+    assert (roi_align.launches, roi_align.adaptive_launches) == (counts[0] + (ratio == 2), counts[1] + (ratio == -1))
+
+
+def test_nms_operator_is_bitwise_the_direct_launch(dev):
+    from openset_rcnn_tpu_torch.ops import nms as ops
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    xy = torch.rand(8, 2000, 2, generator=g, device=dev) * 400
+    boxes = torch.cat([xy, xy + 10 + torch.rand(8, 2000, 2, generator=g, device=dev) * 80], -1).contiguous()
+    valid = torch.rand(8, 2000, generator=g, device=dev) > 0.2
+    direct = ops._nms_keep_cuda(boxes, valid, 0.5)
+    before = nms_keep.launches
+    got = torch.ops.openset_rcnn.nms_keep(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, direct) and nms_keep.launches == before + 1
+
+
+def test_fake_implementations_give_shapes_without_launching(dev):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    feats, boxes = roi_inputs(dev, 2, 33, 64, seed=13)
+    levels = assign_levels(boxes)
+    valid = torch.ones(2, 33, dtype=torch.bool, device=dev)
+    counts = roi_align.launches, roi_align.adaptive_launches, nms_keep.launches
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = [mode.from_tensor(f) for f in feats]
+        out = torch.ops.openset_rcnn.roi_align_fwd(fake, mode.from_tensor(boxes), mode.from_tensor(levels),
+                                                   list(STRIDES), 7, -1)
+        keep = torch.ops.openset_rcnn.nms_keep(mode.from_tensor(boxes), mode.from_tensor(valid), 0.5)
+    assert (tuple(out.shape), out.dtype, out.device) == ((2, 33, 7, 7, 64), torch.float32, boxes.device)
+    assert (tuple(keep.shape), keep.dtype, keep.device) == ((2, 33), torch.bool, boxes.device)
+    assert (roi_align.launches, roi_align.adaptive_launches, nms_keep.launches) == counts
+
+
+def test_exported_program_launches_both_kernels(dev, tmp_path):
+    """``tools.export_serving`` on the card (single program), loaded back:
+    one K1 and two K4 launches a call, the live ``Predictor``'s outputs
+    within the JAX round trip's tolerances (integers and masks exactly)."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.tools import export_serving
+
+    cfg = config_file("openset_rcnn_R50_FPN_128k_tpu.yaml", TEST_BUCKET=(128, 160))
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 200
+    path = tmp_path / "config.yaml"
+    path.write_text(cfg.dump())
+    out = str(tmp_path / "serving.pt2")
+    export_serving.main(["--config-file", str(path), "--batch", "2", "--out", out])
+    program = export_serving.load(out)
+    g = torch.Generator().manual_seed(14)
+    images = (torch.tensor(cfg.MODEL.PIXEL_MEAN) + torch.rand(2, 128, 160, 3, generator=g) * 60 - 30).to(dev)
+    image_hw = torch.tensor([[128.0, 160.0], [100.0, 150.0]], device=dev)
+    before = roi_align.launches, nms_keep.launches
+    with torch.inference_mode(), entry_numerics():
+        boxes, scores, classes, valid, overflow = program(images, image_hw)
+    torch.cuda.synchronize()
+    assert (roi_align.launches, nms_keep.launches) == (before[0] + 1, before[1] + 2)
+    live = Predictor(cfg, dev, seed=0)(images, image_hw)
+    torch.testing.assert_close(boxes, live.boxes, rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(scores, live.scores, rtol=1e-4, atol=2e-3)
+    for got, want in ((classes, live.classes), (valid, live.valid), (overflow, live.known_overflow)):
+        assert torch.equal(got, want)
+
+
+def test_train_step_through_the_operator_is_bitwise_the_direct_launch(dev, monkeypatch):
+    """One f32 Trainer.step with RoIAlign's forward through the operator
+    gives the parameters of the same step with the launch code called
+    directly, as before the operator existed."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.ops import roi_align as ops
+
+    params = {}
+    for route in ("operator", "direct"):
+        if route == "direct":  # the wrapper calls the launch code in place of the operator
+            monkeypatch.setattr(ops, "roi_align_op", ops._roi_align_cuda)
+        cfg = config_file("openset_rcnn_R50_FPN_128k.yaml")
+        cfg.SOLVER.WARMUP_ITERS = 0
+        trainer = Trainer(cfg, seed=0)
+        before = roi_align.launches
+        trainer.step(small_trainer_batch(dev, cfg))
+        assert roi_align.launches == before + 1
+        params[route] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    differ = [n for n, p in params["operator"].items() if not torch.equal(p, params["direct"][n])]
+    assert not differ, differ

@@ -1,7 +1,8 @@
 """The engine slice of the PyTorch port against the JAX package, on the CPU:
 ``TrainLoader`` (bitwise the JAX loader's batches), ``EventWriter``
 (``metrics.json`` lines), ``Checkpointer`` (round trip, ``last_checkpoint``,
-weights-only load, the formats that raise), ``do_train`` against JAX's
+weights-only load, the JAX package's weight formats: .npz, d2 .pkl and .pth load,
+an Orbax directory raises), ``do_train`` against JAX's
 ``do_train`` on the same config (``tests/test_e2e.py``'s ``make_cfg`` at a
 128 x 160 bucket: the same ``metrics.json`` iterations and keys, checkpoint
 iterations and learning rates; a resume that restores step, parameters and
@@ -21,6 +22,7 @@ from openset_rcnn_tpu.data.transforms import DetectionTransform as JaxTransform
 from openset_rcnn_tpu.engine import events as jax_events
 from openset_rcnn_tpu.engine import optimizer as jax_opt
 from openset_rcnn_tpu.engine import train_loop as jax_loop
+from openset_rcnn_tpu.utils import torch_weights as jax_weights
 from openset_rcnn_tpu_torch import train as cli
 from openset_rcnn_tpu_torch.config import get_default_cfg as port_default_cfg
 from openset_rcnn_tpu_torch.data import loader as port_loader_mod
@@ -31,8 +33,10 @@ from openset_rcnn_tpu_torch.engine import checkpoint as port_ckpt
 from openset_rcnn_tpu_torch.engine import events as port_events
 from openset_rcnn_tpu_torch.engine import train_loop as port_loop
 from openset_rcnn_tpu_torch.engine.train_state import Trainer
+from tests import test_torch_port_weights as port_weights
 from tests.port_threads import share_cores  # noqa: F401 (autouse)
 from tests.test_e2e import CLASSES, make_cfg
+from tests.test_torch_converter import build_torch_dict
 
 TRAIN, TEST = "port_engine_train", "port_engine_test"
 
@@ -218,10 +222,29 @@ def test_checkpointer_round_trip_and_weights_only_load(tmp_path):
 
 @pytest.mark.parametrize("name", ["orbax_dir", "weights.npz", "model_final.pkl", "R-50.pth"])
 def test_unported_weight_formats_raise(tmp_path, name):
+    """The JAX package's other weight formats through ``load_weights_file``
+    (the name predates the converters): an Orbax directory still raises
+    ``NotImplementedError``, now with the reason (Orbax imports JAX and
+    needs tensorstore) and the .npz route; the JAX package's flat .npz, a d2
+    .pkl and a d2 .pth (model, optimizer, scheduler, iteration) load, each
+    to JAX's converter followed by ``state_dict_from_jax``, bitwise."""
     path = tmp_path / name
-    path.mkdir() if name == "orbax_dir" else path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        port_ckpt.load_weights_file(str(path), torch.nn.Linear(1, 1))
+    model = Trainer(small_cfg(tmp_path), device="cpu", seed=1).model
+    if name == "orbax_dir":
+        path.mkdir()
+        with pytest.raises(NotImplementedError, match="Orbax checkpoint directories do not load.*tensorstore.*npz"):
+            port_ckpt.load_weights_file(str(path), model)
+        return
+    template = port_weights.jax_template(make_cfg(tmp_path))
+    rng = np.random.RandomState(0)
+    if name.endswith(".npz"):
+        port_weights.write_npz(port_weights.random_params(template, rng), path)
+        want = jax_weights.load_npz_into_params(str(path), template)
+    else:
+        path = port_weights.write_source(name.split(".")[-1], build_torch_dict(template, rng), tmp_path)
+        want = jax_weights.convert_torch_checkpoint(path, template)
+    port_ckpt.load_weights_file(str(path), model)
+    port_weights.assert_state_equal(model.state_dict(), port_weights.jax_state(want, model))
 
 
 # ---------------------------------------------------------------- do_train
