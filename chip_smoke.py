@@ -125,6 +125,40 @@ In order it
      K1 and K4 (counted, and named by torch.profiler); sizes and ms/batch
      beside Predictor's. Phases 16-18 share a temporary directory, removed
      at the end.
+ 19. ddp_nccl: the training CLI with --num-gpus 1 --dist-url
+     tcp://127.0.0.1:<free port>, in a process started here: an NCCL group
+     of one, do_train under DistributedDataParallel on the production
+     config at batch 16, 832x1344, 3 steps on 16 synthetic PNGs from a
+     calibrated init; then the same command without --dist-url in this
+     process (no group); the two final checkpoints bitwise equal (a gate);
+     Trainer.step's ms inside each loop, and over 5 steps on bench.py's
+     batch outside any loader, under DDP and without a group;
+ 20. ddp_gloo2: two gloo processes share the card (NCCL refuses two ranks
+     on one card) and train the production config at global batch 16 (8 a
+     rank) for 3 steps on bench.py's batch, against one process at batch
+     16: each rank's sampling draws exactly its rows of one process's, the
+     parameters within rtol 2e-3 / atol 2e-4; step 1's counts exactly, the
+     other metrics within 1e-5 relative and every gradient tensor (after
+     DDP's reduction) within 1e-3 of its largest, against one process
+     computing the two ranks' shares at batch 8 each (cuDNN rounds a bf16
+     batch of 8 otherwise than the same images inside 16: the drift is
+     printed); step 1 against one process at batch 16 within that drift's
+     limits (counts 1e-2, other metrics 1e-1 relative; the gradients'
+     distance printed);
+ 21. tp_gloo: the f32 config with TPU.MESH_MODEL 2 (box_head fc1/fc2
+     tensor-parallel) on 2 processes, then 2 x 2 on 4, at global batch 4
+     for 2 steps against one process: the gates of phase 20 (step 1 and
+     its gradients, the box head's shards gathered, against one process
+     itself: the f32 drift is 0) and the gathered checkpoint's keys and
+     shapes equal to one process's;
+ 22. eval_gloo2: do_test on two processes over phase 13's 44 records
+     (records i::2 on rank i), on the f32 config and on the production
+     config: every image's detections
+     exactly one process's in f32, and in bf16 exactly those of one process
+     inferring each rank's records alone (the same batches; cuDNN rounds a
+     bf16 image by its place in the batch).
+     Phases 19-22 share a temporary directory, removed at the end; rank 0
+     of each returns its launch counts to this script.
 Each path is driven with every launch count at 0 just before it and read
 just after. The entry points set their own numerics (no TF32, no bf16
 reduced-precision reductions; deterministic cuDNN in the train step): the
@@ -217,6 +251,18 @@ DO_TRAIN_ITERS, DO_TRAIN_PERIOD, DO_TRAIN_RESUME_ITERS = 6, 3, 8
 # the timed run: --resume from 8 to 20 without evals; its first step is
 # warm-up, its last two are profiled, the 9 intervals between them timed
 DO_TRAIN_TIMED_ITERS, DO_TRAIN_PROFILED = 20, 2
+# multi-process phases: steps, the ddp_nccl records (one global batch of
+# landscape images an epoch), and the tolerances against one process
+DDP_STEPS, TP_STEPS, DDP_RECORDS = 3, 2, 16
+DDP_TIMED = 5                     # ddp_nccl's timed steps on one batch, as train_bf16's
+DDP_DATASET = "chip_smoke_ddp"
+DDP_METRIC_RTOL = 1e-5            # step-1 metrics but counts (tests/test_torch_port_ddp.py)
+DDP_GRAD_TOL = 1e-3               # step-1 gradients, of each tensor's largest reference gradient
+# bf16 data parallelism against one process at the global batch: cuDNN rounds
+# a bf16 image by its batch, which moved step 1 (PERF.md §6) by 4 of 1993
+# foreground RoIs and 4.7e-2 relative at most; the limits are about twice that
+DDP_BF16_COUNT_RTOL, DDP_BF16_METRIC_RTOL = 1e-2, 1e-1
+DDP_PARAM_TOL = dict(rtol=2e-3, atol=2e-4)  # parameters after the steps (tests/test_engine_mesh.py:50-52)
 COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",
                "rpn/num_proposals", "roi_head/num_fg_samples", "roi_head/num_bg_samples")
 
@@ -2156,6 +2202,647 @@ def phase_tools(torch, dev):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Multi-process phases: ranks started from this script (parallel.launch, or
+# torch.multiprocessing for the group of one), each on cuda:0.
+# ---------------------------------------------------------------------------
+
+
+def rank_device(torch):
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def run_ranks(fn, n, *args):
+    """``fn(*args)`` in ``n`` gloo processes sharing the card; rank 0's return."""
+    from openset_rcnn_tpu_torch.parallel import launch
+    from openset_rcnn_tpu_torch.parallel.multihost import free_port
+
+    return launch(fn, n, dist_url=f"tcp://127.0.0.1:{free_port()}", args=args, backend="gloo", device_type="cuda")
+
+
+def record_first_draws(path):
+    """Save this process's first step's sampling draws to ``path``."""
+    import torch
+    from openset_rcnn_tpu_torch.engine import train_state
+
+    losses = train_state.training_losses_and_stats
+
+    def recording(*args, uniforms=None, **kwargs):
+        if not Path(path).exists():
+            torch.save({k: v.cpu() for k, v in uniforms.items()}, path)
+        return losses(*args, uniforms=uniforms, **kwargs)
+
+    train_state.training_losses_and_stats = recording
+    return losses
+
+
+def load_state(torch, weights):
+    """The model state dict of a checkpoint file, or None (a seeded init)."""
+    return torch.load(weights, map_location="cpu", weights_only=True)["model"] if weights else None
+
+
+def gradient_capture(model, layout, grads):
+    """A ``mark`` for Trainer.step that fills ``grads`` with the gradients
+    as the optimizer receives them (after DDP's reduction, before clipping),
+    the box head's shards gathered over the model group (every rank calls
+    it), f32 on the host."""
+    from openset_rcnn_tpu_torch.parallel.mesh import MODEL_SHARDED, gather
+
+    def mark(stage):
+        if stage == "backward":
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    dim = MODEL_SHARDED.get(name) if layout.model > 1 else None
+                    grads[name] = (p.grad if dim is None else gather(p.grad, dim, layout)).float().cpu()
+
+    return mark
+
+
+def train_steps(torch, trainer, batch, steps, first_mark=None):
+    """``steps`` Trainer steps on one batch: the first step's metrics on the
+    host and each step's ms (CUDA events); ``first_mark``: the first step's
+    ``mark``."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    first = None
+    for i in range(steps):
+        metrics = trainer.step(batch, mark=first_mark if i == 0 else None)
+        events[i + 1].record()
+        if first is None:
+            first = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    return first, [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+
+
+def train_rank(config, tpu, mesh, steps, weights, work):
+    """A rank of ddp_gloo2 / tp_gloo: Trainer under the (data, model) layout
+    on its images' rows of the phase's global batch, ``steps`` steps with
+    the launches counted, then the gathered checkpoint (rank 0 writes) and
+    step 1's gradients (rank 0 saves them)."""
+    import torch
+    from openset_rcnn_tpu_torch.engine.checkpoint import Checkpointer
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.parallel import process_index
+    from openset_rcnn_tpu_torch.parallel.mesh import make_layout
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    dev = rank_device(torch)
+    cfg = load_cfg(config, **tpu)
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL = mesh
+    layout = make_layout(*mesh)
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    b = cfg.SOLVER.IMS_PER_BATCH // layout.data
+    rows = slice(layout.data_index * b, (layout.data_index + 1) * b)
+    batch = ImageBatch(host.images[rows].to(dev), host.image_hw[rows].to(dev),
+                       GroundTruth(host.gt.boxes[rows].to(dev), host.gt.classes[rows].to(dev),
+                                   host.gt.valid[rows].to(dev)))
+    record_first_draws(str(Path(work) / f"draws_rank{process_index()}.pt"))
+    trainer = Trainer(cfg, seed=0, layout=layout, state_dict=load_state(torch, weights))
+    grads = {}
+    reset_launches()
+    first, step_ms = train_steps(torch, trainer, batch, steps, gradient_capture(trainer.model, layout, grads))
+    launches = read_launches()
+    Checkpointer(work, layout).save(trainer.state, steps)
+    if process_index() == 0:
+        torch.save(grads, Path(work) / "grads.pt")
+    return dict(first=first, step_ms=step_ms, launches=launches, rows=(rows.start, rows.stop),
+                layout=(layout.data, layout.model), backend=torch.distributed.get_backend())
+
+
+def one_process_reference(torch, dev, config, tpu, steps, weights, work):
+    """The same steps by one process on the whole global batch: the first
+    step's draws, metrics and gradients, step ms, and its checkpoint under
+    ``work``."""
+    from openset_rcnn_tpu_torch.engine import train_state
+    from openset_rcnn_tpu_torch.engine.checkpoint import Checkpointer
+    from openset_rcnn_tpu_torch.parallel.mesh import SINGLE
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    cfg = load_cfg(config, **tpu)
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+    draws = Path(work) / "draws_one.pt"
+    losses = record_first_draws(str(draws))
+    try:
+        trainer = train_state.Trainer(cfg, dev, seed=0, state_dict=load_state(torch, weights))
+        grads = {}
+        first, step_ms = train_steps(torch, trainer, batch, steps, gradient_capture(trainer.model, SINGLE, grads))
+    finally:
+        train_state.training_losses_and_stats = losses
+    Checkpointer(work).save(trainer.state, steps)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(first=first, step_ms=step_ms, draws=torch.load(draws), grads=grads)
+
+
+def gradient_deviations(got, want):
+    """{name: max |got - want| / max |want|} over the trainable tensors."""
+    check(got.keys() == want.keys(), "the gradients' tensors differ")
+    return {n: float((got[n] - w).abs().max() / w.abs().max().clamp(min=1e-30)) for n, w in want.items()}
+
+
+def metric_deviations(got, ref):
+    """{metric: |got - ref| / |ref|} over step 1's metrics, counts included."""
+    return {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+
+
+def compare_runs(torch, label, got, want, got_dir, want_dir, steps, ref=None):
+    """The multi-process run against one process at the global batch
+    (``want``): each rank's draws its rows exactly, the checkpoints' keys and
+    shapes equal and their values within DDP_PARAM_TOL. Step 1 against
+    ``ref``, the reference that does the ranks' work (one process itself
+    unless given, ``split_step_reference``): counts exactly, the other
+    metrics within DDP_METRIC_RTOL, every gradient tensor within DDP_GRAD_TOL
+    of its largest. With ``ref`` given (bf16), step 1 is also held against
+    one process at the global batch: counts within DDP_BF16_COUNT_RTOL, the
+    other metrics within DDP_BF16_METRIC_RTOL, and the gradients' distance
+    printed. Returns the measured deviations."""
+    import numpy as np
+
+    ranks = sorted(Path(got_dir).glob("draws_rank*.pt"))
+    n_data, n_model = got["layout"]
+    check(len(ranks) == n_data * n_model, f"{label}: draws of {len(ranks)} ranks")
+    b = len(want["draws"]["rpn"]) // n_data
+    for path in ranks:
+        r = int(path.stem[len("draws_rank"):])
+        rows = slice((r // n_model) * b, (r // n_model + 1) * b)
+        draws = torch.load(path)
+        check(draws.keys() == want["draws"].keys() and all(torch.equal(v, want["draws"][k][rows])
+                                                           for k, v in draws.items()),
+              f"{label}: rank {r}'s sampling draws are not the one-process draws' rows {rows}")
+    grads = torch.load(Path(got_dir) / "grads.pt")
+    out = {}
+    if ref is not None:
+        near = metric_deviations(got["first"], want["first"])
+        near_counts = max(near[k] for k in COUNT_STATS)
+        near_metrics = max((v, k) for k, v in near.items() if k not in COUNT_STATS)
+        near_grads = gradient_deviations(grads, want["grads"])
+        near_grad = max((v, k) for k, v in near_grads.items())
+        print(f"{label}: step 1 against one process at the global batch: counts "
+              + json.dumps({k: (got["first"][k], want["first"][k]) for k in COUNT_STATS})
+              + f", largest count deviation {near_counts:.3e} (limit {DDP_BF16_COUNT_RTOL}), largest other metric "
+              f"deviation {near_metrics[0]:.3e} ({near_metrics[1]}; limit {DDP_BF16_METRIC_RTOL}); gradients at most "
+              f"{near_grad[0]:.3e} of a tensor's largest ({near_grad[1]}; median "
+              f"{float(np.median(list(near_grads.values()))):.3e}); relative metric deviations "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in near.items()}), flush=True)
+        check(near_counts <= DDP_BF16_COUNT_RTOL, f"{label}: step-1 counts {near_counts:.3e} from one process")
+        check(near_metrics[0] <= DDP_BF16_METRIC_RTOL,
+              f"{label}: step-1 metric {near_metrics[1]} {near_metrics[0]:.3e} from one process")
+        out.update(one_process_count_rel_dev=near_counts, one_process_metric_rel_dev=near_metrics[0],
+                   one_process_grad_rel_dev=near_grad[0])
+    ref = ref or want
+    metric_dev = {k: v for k, v in metric_deviations(got["first"], ref["first"]).items() if k not in COUNT_STATS}
+    counts = {k: (got["first"][k], ref["first"][k]) for k in COUNT_STATS}
+    grad_dev = gradient_deviations(grads, ref["grads"])
+    worst_grad = max((v, k) for k, v in grad_dev.items())
+    a = torch.load(Path(got_dir) / f"model_{steps:07d}.pt", map_location="cpu", weights_only=True)
+    w = torch.load(Path(want_dir) / f"model_{steps:07d}.pt", map_location="cpu", weights_only=True)
+    same_form = ({k: tuple(v.shape) for k, v in a["model"].items()} == {k: tuple(v.shape) for k, v in w["model"].items()}
+                 and {k: tuple(v["momentum_buffer"].shape) for k, v in a["optimizer"]["state"].items()}
+                 == {k: tuple(v["momentum_buffer"].shape) for k, v in w["optimizer"]["state"].items()})
+    worst, worst_name, outside = 0.0, "", []
+    for k, v in w["model"].items():
+        x, y = a["model"][k].double().numpy(), v.double().numpy()
+        excess = np.abs(x - y) - (DDP_PARAM_TOL["atol"] + DDP_PARAM_TOL["rtol"] * np.abs(y))
+        if excess.max(initial=-1.0) > 0:
+            outside.append(k)
+        dev = float(np.abs(x - y).max(initial=0.0))
+        if dev > worst:
+            worst, worst_name = dev, k
+    bitwise = all(torch.equal(a["model"][k], v) for k, v in w["model"].items())
+    worst_metric = max(metric_dev.items(), key=lambda kv: kv[1])
+    print(f"{label}: step-1 metrics' relative deviations from the reference " + json.dumps({k: float(f"{v:.3e}") for k, v in
+                                                                        metric_dev.items()}), flush=True)
+    print(f"{label}: layout {n_data} x {n_model} ({got['backend']}), draws of {len(ranks)} ranks exactly the "
+          f"one-process rows; step 1 against the reference: counts {json.dumps(counts)}, largest relative metric "
+          f"deviation {worst_metric[1]:.3e} ({worst_metric[0]}), gradients at most {worst_grad[0]:.3e} of a "
+          f"tensor's largest ({worst_grad[1]}; {len(grad_dev)} tensors); after {steps} steps the parameters are "
+          f"{'bitwise equal' if bitwise else f'at most {worst:.3e} apart ({worst_name})'}, "
+          f"{len(outside)} tensors outside rtol {DDP_PARAM_TOL['rtol']} / atol {DDP_PARAM_TOL['atol']}; "
+          f"the checkpoint's keys and shapes {'equal' if same_form else 'DIFFER'}", flush=True)
+    check(all(g == w_ for g, w_ in counts.values()), f"{label}: step-1 counts {counts}")
+    check(worst_metric[1] <= DDP_METRIC_RTOL, f"{label}: step-1 metric {worst_metric[0]} off by {worst_metric[1]:.3e}")
+    check(worst_grad[0] <= DDP_GRAD_TOL, f"{label}: step-1 gradient {worst_grad[1]} off by {worst_grad[0]:.3e}")
+    check(same_form, f"{label}: the gathered checkpoint's keys or shapes differ from one process's")
+    check(not outside, f"{label}: parameters outside the tolerance: {outside[:5]}")
+    out.update(metric_rel_dev=worst_metric[1], grad_rel_dev=worst_grad[0], param_max_abs_dev=worst, bitwise=bitwise)
+    return out
+
+
+class ShareSum:
+    """The ``global_sum`` hook of one share of a batch split into ``size``
+    shares in one process: on a first pass it records its share's values;
+    given the other shares' records, it returns their sum with its own (the
+    loss hooks sum integer counts only, so the sums are exact)."""
+
+    def __init__(self, size, others=()):
+        self.size, self.others, self.seen = size, list(others), []
+
+    def __call__(self, x):
+        self.seen.append(x.detach().clone())
+        return x + sum(o[len(self.seen) - 1] for o in self.others) if self.others else x
+
+
+def split_step_reference(torch, dev, config, weights, parts):
+    """Step 1 of one process computing the phase's global batch as
+    ``parts`` shares of B / ``parts`` images, each share's forward and
+    backward at that batch size, with every global sum taken over the shares
+    and the one-process step's draws: what ``parts`` data-parallel ranks
+    compute, without processes or DDP. {"first": metrics, "grads": the
+    shares' gradients summed (DDP's mean of W x each rank's), f32 on the
+    host}."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer, step_generator
+    from openset_rcnn_tpu_torch.models.detector import training_losses_and_stats
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    cfg = load_cfg(config)
+    trainer = Trainer(cfg, dev, seed=0, state_dict=load_state(torch, weights))
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    gt = host.gt
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(gt.boxes.to(dev), gt.classes.to(dev), gt.valid.to(dev)))
+    anchors, level_sizes = trainer.anchors(BUCKET)
+    draws = trainer.sampling_draws(batch, anchors.shape[0], level_sizes, step_generator(0, 0, dev))
+    b = len(batch.images) // parts
+
+    def share(i, hook, backward):
+        rows = slice(i * b, (i + 1) * b)
+        part = ImageBatch(batch.images[rows], batch.image_hw[rows],
+                          GroundTruth(batch.gt.boxes[rows], batch.gt.classes[rows], batch.gt.valid[rows]))
+        with torch.set_grad_enabled(backward), entry_numerics(deterministic=True):
+            losses, stats = training_losses_and_stats(trainer.model, part, trainer.spec, anchors, level_sizes,
+                                                      uniforms={k: v[rows] for k, v in draws.items()},
+                                                      global_sum=hook)
+            if backward:
+                sum(losses.values()).backward()
+        return {k: float(v) for k, v in losses.items()}, {k: float(v) for k, v in stats.items()}
+
+    recorded = [ShareSum(parts) for _ in range(parts)]
+    for i in range(parts):
+        share(i, recorded[i], False)
+    trainer.model.zero_grad(set_to_none=True)
+    out = [share(i, ShareSum(parts, [r.seen for j, r in enumerate(recorded) if j != i]), True) for i in range(parts)]
+    grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    losses = {k: sum(o[0][k] for o in out) for k in out[0][0]}
+    metrics = {**losses, **out[0][1]}
+    metrics["total_loss"] = sum(losses.values())
+    metrics["lr"] = float(trainer.schedule(0))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(first=metrics, grads=grads)
+
+
+def batch_split_drift(torch, dev, config, weights, parts):
+    """How far one process's forward of the phase's images at batch B /
+    ``parts`` lies from the same images inside the whole batch B (the
+    one-process step's), under the train step's numerics: per FPN level,
+    max |difference| / max |value|. Zero where cuDNN computes each image
+    alike at both batch sizes."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+
+    cfg = load_cfg(config)
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    model = build_model(ModelSpec.from_cfg(cfg), dev, load_state(torch, weights), seed=0)
+    images, hw = host.images.to(dev), host.image_hw.to(dev)
+    b = len(images) // parts
+    with torch.no_grad(), entry_numerics(deterministic=True):
+        whole = model.features(images, hw)
+        split = [model.features(images[i * b:(i + 1) * b], hw[i * b:(i + 1) * b]) for i in range(parts)]
+    drift = {k: float((torch.cat([p[k] for p in split]) - v).abs().max() / v.abs().max()) for k, v in whole.items()}
+    del model, whole, split
+    torch.cuda.empty_cache()
+    return drift
+
+
+def calibrated_weights(torch, dev, cfg, work):
+    """A seeded init of ``cfg`` with FrozenBN calibrated on the phase's
+    global batch (see calibrate_frozen_bn), saved under ``work``."""
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    model = build_model(ModelSpec.from_cfg(cfg), dev, seed=0)
+    calibrate_frozen_bn(torch, model, host.images.to(dev), host.image_hw.to(dev))
+    path = Path(work) / "init.pt"
+    torch.save({"model": model.state_dict()}, path)
+    del model
+    torch.cuda.empty_cache()
+    return str(path)
+
+
+def timed_cli_run(torch, argv):
+    """The training CLI's ``main`` on ``argv`` with every Trainer.step timed
+    by CUDA events and the launches counted: {step, launches, groups (the
+    process group's backend and size at each step, or None), step_ms}."""
+    from openset_rcnn_tpu_torch import train as cli
+    from openset_rcnn_tpu_torch.engine import train_state
+
+    step, times, groups = train_state.Trainer.step, [], []
+
+    def timed(self, batch, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(self, batch, *args, **kwargs)
+        end.record()
+        times.append((start, end))
+        dist = torch.distributed
+        groups.append((dist.get_backend(), dist.get_world_size()) if dist.is_initialized() else None)
+        return metrics
+
+    train_state.Trainer.step = timed
+    try:
+        reset_launches()
+        final = cli.main(cli.get_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        train_state.Trainer.step = step
+    return dict(step=final if isinstance(final, int) else final.step, launches=read_launches(), groups=groups,
+                step_ms=[s.elapsed_time(e) for s, e in times])
+
+
+def step_ms_on_one_batch(torch, weights, layout):
+    """Trainer.step of the production config on bench.py's batch of 16,
+    outside any loader: DDP_TIMED steps after 2 warm-up steps, ms each
+    (CUDA events). ``layout``: a ``Layout`` (under it, DDP)."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+    from openset_rcnn_tpu_torch.structures import GroundTruth, ImageBatch
+
+    cfg = load_cfg(CONFIG_BF16)
+    dev = rank_device(torch)
+    host = bench_batch(torch, cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.MAX_GT_PER_IMAGE)
+    batch = ImageBatch(host.images.to(dev), host.image_hw.to(dev),
+                       GroundTruth(host.gt.boxes.to(dev), host.gt.classes.to(dev), host.gt.valid.to(dev)))
+    trainer = Trainer(cfg, seed=0, layout=layout, state_dict=load_state(torch, weights))
+    for _ in range(2):
+        trainer.step(batch)
+    _, step_ms = train_steps(torch, trainer, batch, DDP_TIMED)
+    del trainer
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def ddp_nccl_child(local_rank, argv, records, out, weights):
+    """ddp_nccl's process: the CLI as a user launches it on one GPU with a
+    rendezvous URL (``main`` forms an NCCL group of one); then Trainer.step
+    under DDP in a new NCCL group of one, on one batch; written to ``out``."""
+    import torch
+    from openset_rcnn_tpu_torch.parallel import initialize_distributed
+    from openset_rcnn_tpu_torch.parallel.mesh import make_layout
+    from openset_rcnn_tpu_torch.parallel.multihost import free_port
+
+    register_records(DDP_DATASET, records)
+    result = timed_cli_run(torch, argv)
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, 0, "nccl", "cuda")
+    try:
+        result["step_ms_one_batch"] = step_ms_on_one_batch(torch, weights, make_layout(1, 1))
+        result["group"] = (torch.distributed.get_backend(), torch.distributed.get_world_size())
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(out).write_text(json.dumps(result))
+
+
+def phase_ddp_nccl(torch, dev, work):
+    """ddp_nccl: ``python -m openset_rcnn_tpu_torch.train --num-gpus 1
+    --dist-url tcp://127.0.0.1:<port>`` (its ``main``, in a process started
+    here) forms an NCCL group of one and trains the production config under
+    DDP at batch 16, 832x1344, DDP_STEPS steps, on synthetic PNGs from a
+    calibrated init; then the same command without ``--dist-url`` (no group,
+    no DDP) in this process. Gate: the two final checkpoints bitwise equal.
+    ms/step of each run's steps inside do_train's loop (shared with the
+    loader's threads), and of DDP_TIMED steps on one batch outside any
+    loader, under DDP in an NCCL group of one and without a group."""
+    import torch.multiprocessing as mp
+    from openset_rcnn_tpu_torch.data import TrainLoader, generate_synthetic_dataset
+    from openset_rcnn_tpu_torch.engine.train_loop import build_train_transform
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+    from openset_rcnn_tpu_torch.parallel.mesh import SINGLE
+    from openset_rcnn_tpu_torch.parallel.multihost import free_port
+
+    t0 = time.perf_counter()
+    cfg = load_cfg(CONFIG_BF16)
+    records = generate_synthetic_dataset(str(work / "ddp"), DDP_RECORDS, EVAL_HW, num_classes=80, max_objects=6,
+                                         seed=31)
+    first, _ = next(iter(TrainLoader(records, build_train_transform(cfg), cfg.SOLVER.IMS_PER_BATCH, seed=0)))
+    model = build_model(ModelSpec.from_cfg(cfg), dev, seed=0)
+    calibrate_frozen_bn(torch, model, first.images.to(dev), first.image_hw.to(dev))
+    weights = work / "ddp_init.pt"
+    torch.save({"model": model.state_dict()}, weights)
+    del model
+    torch.cuda.empty_cache()
+
+    def argv(out):
+        return ["--config-file", str(CONFIG_BF16), "SEED", "0", "OUTPUT_DIR", str(out), "MODEL.WEIGHTS",
+                str(weights), "MODEL.RPN.DELTA_BIAS_INIT", "1.0", "DATASETS.TRAIN", f"('{DDP_DATASET}',)",
+                "SOLVER.MAX_ITER", str(DDP_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0"]
+
+    flags = ["--num-gpus", "1", "--dist-url", f"tcp://127.0.0.1:{free_port()}"]
+    result = work / "ddp_nccl.json"
+    wall = time.perf_counter()
+    mp.start_processes(ddp_nccl_child, args=(flags + argv(work / "ddp_run"), records, str(result), str(weights)),
+                       nprocs=1, join=True, start_method="spawn")
+    wall = time.perf_counter() - wall
+    ddp = json.loads(result.read_text())
+    check(ddp["step"] == DDP_STEPS and ddp["groups"] == [["nccl", 1]] * DDP_STEPS and ddp["group"] == ["nccl", 1],
+          f"ddp_nccl: ended at {ddp['step']}, groups {ddp['groups']}, {ddp['group']}")
+    register_records(DDP_DATASET, records)
+    alone = timed_cli_run(torch, argv(work / "alone_run"))
+    check(alone["step"] == DDP_STEPS and alone["groups"] == [None] * DDP_STEPS, f"ddp_nccl: the run without a group")
+    torch.cuda.empty_cache()
+    alone_one_batch = step_ms_on_one_batch(torch, str(weights), SINGLE)
+    got, want = (torch.load(work / run / f"model_{DDP_STEPS:07d}.pt", map_location="cpu", weights_only=True)["model"]
+                 for run in ("ddp_run", "alone_run"))
+    differ = [k for k, v in want.items() if not torch.equal(v, got[k])]
+    # the first step of each builds cuDNN plans (and DDP's buckets)
+    ddp_mean = sum(ddp["step_ms"][1:]) / (DDP_STEPS - 1)
+    alone_mean = sum(alone["step_ms"][1:]) / (DDP_STEPS - 1)
+    ddp_batch, alone_batch = ddp["step_ms_one_batch"], alone_one_batch
+    ddp_batch_mean, alone_batch_mean = sum(ddp_batch) / DDP_TIMED, sum(alone_batch) / DDP_TIMED
+    print(f"ddp_nccl: the CLI with --num-gpus 1 --dist-url, an NCCL group of one, {DDP_STEPS} steps of "
+          f"{CONFIG_BF16.name} at batch {cfg.SOLVER.IMS_PER_BATCH} in {wall:.1f} s with the process start; "
+          f"parameters {'bitwise equal to' if not differ else f'DIFFER in {len(differ)} tensors from'} "
+          f"the same command without a group; Trainer.step inside do_train, ms: under DDP "
+          f"{[round(x, 2) for x in ddp['step_ms']]} (steady {ddp_mean:.2f}), without a group "
+          f"{[round(x, 2) for x in alone['step_ms']]} (steady {alone_mean:.2f}); on one batch, no loader, after 2 "
+          f"warm-up steps: under DDP {[round(x, 2) for x in ddp_batch]} (mean {ddp_batch_mean:.2f}), without a group "
+          f"{[round(x, 2) for x in alone_batch]} (mean {alone_batch_mean:.2f}); launches (DDP run) "
+          + json.dumps(ddp["launches"]) + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    check(not differ, f"ddp_nccl: parameters differ from the run without a group: {differ[:5]}")
+    check(ddp["launches"] == alone["launches"], f"ddp_nccl: launches {ddp['launches']} against {alone['launches']}")
+    return ddp["launches"], dict(ms_per_step=ddp_batch_mean, ms_per_step_without_group=alone_batch_mean,
+                                 step_ms=ddp_batch, step_ms_without_group=alone_batch,
+                                 loop_step_ms=ddp["step_ms"], loop_step_ms_without_group=alone["step_ms"],
+                                 seconds_with_process_start=wall)
+
+
+def phase_ddp_gloo2(torch, dev, work):
+    """ddp_gloo2: two gloo ranks share cuda:0 (NCCL refuses two ranks on one
+    card) and train the production config at global batch 16 (8 a rank) for
+    DDP_STEPS steps against one process on the same batch: draws, step-1
+    metrics, parameters (compare_runs)."""
+    cfg = load_cfg(CONFIG_BF16)
+    weights = calibrated_weights(torch, dev, cfg, work)
+    want_dir, got_dir = work / "gloo_one", work / "gloo2"
+    want_dir.mkdir()
+    got_dir.mkdir()
+    want = one_process_reference(torch, dev, CONFIG_BF16, {}, DDP_STEPS, weights, want_dir)
+    wall = time.perf_counter()
+    got = run_ranks(train_rank, 2, CONFIG_BF16, {}, (2, 1), DDP_STEPS, weights, str(got_dir))
+    wall = time.perf_counter() - wall
+    drift = batch_split_drift(torch, dev, CONFIG_BF16, weights, 2)
+    print("ddp_gloo2: the forward of half the batch at batch 8 against the same images at batch 16, max |diff| / "
+          "max |value| per level " + json.dumps({k: float(f"{v:.3e}") for k, v in drift.items()}), flush=True)
+    # bf16: cuDNN rounds a batch of 8 otherwise than the same images inside 16
+    # (the drift above), so step 1 is held exactly against one process
+    # computing the two ranks' shares at batch 8 each, and within the drift's
+    # limits against one process at batch 16, as the parameters are
+    shares = split_step_reference(torch, dev, CONFIG_BF16, weights, 2)
+    dev_ = compare_runs(torch, "ddp_gloo2", got, want, got_dir, want_dir, DDP_STEPS, ref=shares)
+    print(f"ddp_gloo2: ms/step (rank 0) {[round(x, 2) for x in got['step_ms']]}, one process "
+          f"{[round(x, 2) for x in want['step_ms']]}; {wall:.1f} s with the processes' start; launches (rank 0) "
+          + json.dumps(got["launches"]), flush=True)
+    return got["launches"], dict(step_ms=got["step_ms"], one_process_step_ms=want["step_ms"], **dev_)
+
+
+def phase_tp_gloo(torch, dev, work):
+    """tp_gloo: the f32 config with TPU.MESH_MODEL 2 (box_head fc1/fc2
+    tensor-parallel) on 2 gloo ranks, and 2 x 2 on 4, at global batch
+    TRAIN_BATCH for TP_STEPS steps against one process (compare_runs, the
+    gathered checkpoint's keys and shapes included)."""
+    want_dir = work / "tp_one"
+    want_dir.mkdir()
+    want = one_process_reference(torch, dev, CONFIG, {}, TP_STEPS, None, want_dir)
+    drift = batch_split_drift(torch, dev, CONFIG, None, 2)
+    print("tp_gloo: the f32 forward of half the batch at batch 2 against the same images at batch 4, max |diff| / "
+          "max |value| per level " + json.dumps({k: float(f"{v:.3e}") for k, v in drift.items()}), flush=True)
+    paths, results = {}, {}
+    for label, mesh in (("tp_gloo", (1, 2)), ("tp_gloo_2x2", (2, 2))):
+        got_dir = work / label
+        got_dir.mkdir()
+        wall = time.perf_counter()
+        got = run_ranks(train_rank, mesh[0] * mesh[1], CONFIG, {}, mesh, TP_STEPS, None, str(got_dir))
+        wall = time.perf_counter() - wall
+        results[label] = dict(step_ms=got["step_ms"], **compare_runs(torch, label, got, want, got_dir, want_dir,
+                                                                      TP_STEPS))
+        print(f"{label}: ms/step (rank 0) {[round(x, 2) for x in got['step_ms']]}, one process "
+              f"{[round(x, 2) for x in want['step_ms']]}; {wall:.1f} s with the processes' start; launches (rank 0) "
+              + json.dumps(got["launches"]), flush=True)
+        paths[label] = got["launches"]
+    return paths, results
+
+
+def eval_rank(config, out, shard=None):
+    """A rank of eval_gloo2 (or one process): do_test over the eval phase's
+    records (``shard`` (i, n): over records[i::n] only, as rank i of n
+    infers them); its metrics, launches, and every image's detections as
+    the evaluator received them, gathered from all ranks."""
+    import numpy as np
+    import torch
+    from openset_rcnn_tpu_torch.engine.train_loop import do_test
+    from openset_rcnn_tpu_torch.evaluation.voc_eval import OpensetVocEvaluator
+    from openset_rcnn_tpu_torch.parallel import gather_object
+
+    cfg = load_cfg(config)
+    cfg.OUTPUT_DIR = out
+    records, pixels = eval_records(np, EVAL_HW)
+    register_eval(EVAL_DATASET, records if shard is None else records[shard[0]::shard[1]])
+    transform = in_memory_transform(cfg, pixels)
+    seen, process = {}, OpensetVocEvaluator.process
+
+    def spy(self, image_id, boxes, scores, classes):
+        seen[image_id] = tuple(np.array(a) for a in (boxes, scores, classes))
+        return process(self, image_id, boxes, scores, classes)
+
+    OpensetVocEvaluator.process = spy
+    try:
+        reset_launches()
+        results = do_test(cfg, datasets=[EVAL_DATASET], transform=transform)[EVAL_DATASET]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        OpensetVocEvaluator.process = process
+    detections = {k: v for part in gather_object(seen) for k, v in part.items()}
+    return dict(results=results, launches=launches, detections=detections)
+
+
+def differing_images(np, got, want):
+    """Image ids whose detections are not exactly ``want``'s (or missing)."""
+    return sorted(k for k in set(want) | set(got) if k not in got or k not in want
+                  or not all(np.array_equal(x, y) for x, y in zip(got[k], want[k])))
+
+
+def phase_eval_gloo2(torch, dev, work):
+    """eval_gloo2: do_test on two gloo ranks (records i::2 on rank i; the
+    evaluator gathers the detections) against one process, on the f32
+    config and on the production config. Gates: in f32 every image's
+    detections exactly one process's; in bf16 cuDNN rounds an
+    image by its place in the batch, so the two ranks' detections are held
+    exactly against one process inferring each rank's records alone (the
+    same batches), and their distance from one process over all records is
+    printed. The metrics are printed, not gated: the seeded random weights
+    score 0 on every one (tests/test_torch_port_ddp.py holds the evaluator's
+    merge across processes on metrics that are not 0)."""
+    import numpy as np
+
+    paths, results = {}, {}
+    for label, config in (("f32", CONFIG), ("bf16", CONFIG_BF16)):
+        one = eval_rank(config, str(work / f"eval_one_{label}"))
+        wall = time.perf_counter()
+        got = run_ranks(eval_rank, 2, config, str(work / f"eval_two_{label}"))
+        wall = time.perf_counter() - wall
+        dets, want = got["detections"], one["detections"]
+        off_one = differing_images(np, dets, want)
+        shards = {}
+        if label == "bf16":
+            for i in range(2):
+                shards.update(eval_rank(config, str(work / f"eval_shard{i}"), (i, 2))["detections"])
+        off_shards = differing_images(np, dets, shards) if shards else []
+        n_dets = sum(len(d[1]) for d in dets.values())
+        print(f"eval_gloo2 ({label}): do_test on 2 processes ({wall:.1f} s with their start): {len(dets)} images' "
+              f"detections ({n_dets} boxes); {len(off_one)} images differ from one process over all records"
+              + (f" ({off_one[:6]})" if off_one else "")
+              + (f"; {len(off_shards)} differ from one process inferring each rank's records alone" if shards else "")
+              + "; metrics (not gated) " + json.dumps(got["results"]) + ", one process's " + json.dumps(one["results"])
+              + "; launches (rank 0) " + json.dumps(got["launches"]), flush=True)
+        check(len(dets) == EVAL_LANDSCAPE + EVAL_PORTRAIT, f"eval_gloo2 ({label}): {len(dets)} images")
+        check(not (off_shards if shards else off_one), f"eval_gloo2 ({label}): detections differ")
+        paths[label] = got["launches"]
+        results[label] = dict(results=got["results"], boxes=n_dets, images_off_one_process=len(off_one),
+                              seconds_with_process_start=wall)
+    return paths["bf16"], results
+
+
+def phase_multiprocess(torch, dev):
+    """The multi-process phases in one temporary directory (under TMPDIR,
+    removed at the end, pass or fail): {path: launches}, {path: results}.
+    Each checks that its kernels launched on its rank 0."""
+    import shutil
+    import tempfile
+
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ddp_"))
+    try:
+        paths, results = {}, {}
+        paths["ddp_nccl"], results["ddp_nccl"] = phase_ddp_nccl(torch, dev, work)
+        paths["ddp_gloo2"], results["ddp_gloo2"] = phase_ddp_gloo2(torch, dev, work)
+        tp_paths, tp_results = phase_tp_gloo(torch, dev, work)
+        paths.update(tp_paths)
+        results.update(tp_results)
+        paths["eval_gloo2"], results["eval_gloo2"] = phase_eval_gloo2(torch, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    bf16_fwd, bf16_bwd = train_kernels(load_cfg(CONFIG_BF16))
+    f32_fwd, f32_bwd = train_kernels(load_cfg())
+    want = {"ddp_nccl": (bf16_fwd, bf16_bwd, "iou_match"), "ddp_gloo2": (bf16_fwd, bf16_bwd, "iou_match"),
+            "tp_gloo": (f32_fwd, f32_bwd, "iou_match"), "tp_gloo_2x2": (f32_fwd, f32_bwd, "iou_match"),
+            "eval_gloo2": ("roi_align_fwd", "nms_keep")}
+    for path, names in want.items():
+        for name in names:
+            check(paths[path][name] > 0, f"{path}: {name} was not launched ({paths[path]})")
+    return paths, results
+
+
 def step_timings(torch, dev):
     """``--step-timings``: ms/step of train (f32, batch 4) and train_bf16
     (batch 16), one profiled f32 step, and whether two steps repeat bitwise."""
@@ -2284,6 +2971,9 @@ def main():
     tool_paths, tool_results = phase_tools(torch, dev)
     paths.update(tool_paths)
     results.update(tool_results)
+    mp_paths, mp_results = phase_multiprocess(torch, dev)
+    paths.update(mp_paths)
+    results.update(mp_results)
     # launches: from the path of this slice that runs the kernel (eval: K1,
     # K4; train: K2 f32, K3; train_bf16: K2 bf16; the adaptive modes of K1
     # and K2 f32: parity_eval and train_parity; K5, which no path of the

@@ -11,6 +11,13 @@ marker, and supports
     ``.pkl``/``.pth`` (``utils/torch_weights.py``), dispatched as
     ``openset_rcnn_tpu/engine/checkpoint.py:82-99`` does.
 
+Under a process group (``parallel/mesh.py``) every rank calls ``save``: the
+model group gathers the box head's shards, rank 0 writes the whole weights and
+momentum in the one-process format, and every rank waits at a barrier until
+the file is complete; ``restore`` loads the whole file on every rank and cuts
+this rank's shards from it. So a checkpoint of any layout loads into any
+other, a one-process run and ``--eval-only`` included.
+
 An Orbax checkpoint directory does not load: Orbax imports JAX, which the
 port never imports, and Orbax writes OCDBT/zarr3 through ``tensorstore``.
 The JAX side saves its parameters as an ``.npz`` instead (see
@@ -25,6 +32,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import (SINGLE, Layout, gather_optimizer_state, gather_state_dict, shard_optimizer_state,
+                             shard_state_dict)
+
 logger = logging.getLogger(__name__)
 
 ORBAX_REASON = (
@@ -36,25 +46,30 @@ ORBAX_REASON = (
 
 class Checkpointer:
     """Saves and restores a ``train_state.TrainState`` (step, model,
-    optimizer) under ``output_dir``."""
+    optimizer) under ``output_dir``, for this rank's ``layout``."""
 
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, layout: Layout = SINGLE):
         self.dir = os.path.abspath(output_dir)
+        self.layout = layout
         os.makedirs(self.dir, exist_ok=True)
 
     # ------------------------------------------------------------------ save
     def save(self, state, step: int) -> str:
-        from ..parallel import is_main_process
+        """Write ``model_{step:07d}.pt`` (every rank calls this)."""
+        from ..parallel import barrier, is_main_process
+        from .train_state import trainable_names
 
         path = os.path.join(self.dir, f"model_{step:07d}.pt")
+        model = gather_state_dict(state.model.state_dict(), self.layout)
+        optimizer = gather_optimizer_state(state.optimizer.state_dict(), trainable_names(state.model), self.layout)
         if is_main_process():
             tmp = path + ".tmp"
-            torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                        "step": int(step)}, tmp)
+            torch.save({"model": model, "optimizer": optimizer, "step": int(step)}, tmp)
             os.replace(tmp, path)
             with open(os.path.join(self.dir, "last_checkpoint"), "w") as f:
                 f.write(os.path.basename(path))
             logger.info("Saved checkpoint %s", path)
+        barrier()
         return path
 
     # --------------------------------------------------------------- restore
@@ -72,50 +87,61 @@ class Checkpointer:
         default): model weights and buffers, optimizer state, step."""
         path = path or self.latest_path()
         assert path, "no checkpoint to restore"
+        from .train_state import trainable_names
+
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.model.load_state_dict(shard_state_dict(ckpt["model"], self.layout), strict=True)
+        state.optimizer.load_state_dict(shard_optimizer_state(ckpt["optimizer"], trainable_names(state.model),
+                                                              self.layout))
         state.step = int(ckpt["step"])
         logger.info("Restored checkpoint %s (step=%d)", path, state.step)
         return state
 
     def resume_or_load(self, state, weights: str = "", resume: bool = False) -> Tuple[object, bool]:
         """d2-style policy: --resume continues from the latest checkpoint;
-        otherwise load weights-only from ``weights`` if given."""
+        otherwise load weights-only from ``weights`` if given (every rank
+        reads the whole weights and keeps its shards)."""
         if resume and self.latest_path():
             return self.restore(state), True
         if weights:
-            load_weights_file(weights, state.model)
+            load_weights_file(weights, state.model, self.layout)
         return state, False
 
 
-def load_weights_file(path: str, model: nn.Module) -> nn.Module:
+def load_weights_file(path: str, model: nn.Module, layout: Layout = SINGLE) -> nn.Module:
     """Load model weights into ``model``: a port checkpoint (``.pt``, its
     ``model`` entry; unknown keys raise), the JAX package's flat ``.npz``
     (``torch_weights.load_npz``), or a d2 ``.pth`` / d2 or caffe2 ``.pkl``
     (``torch_weights.convert_torch_checkpoint``). Missing keys keep their
     initialized values; shape mismatches raise. An Orbax directory raises
-    ``NotImplementedError`` (``ORBAX_REASON``), another file ``ValueError``."""
+    ``NotImplementedError`` (``ORBAX_REASON``), another file ``ValueError``.
+    Under a model group (``layout``) the file holds the whole tensors: every
+    rank reads them into the gathered state and keeps its shards (a
+    collective)."""
     if os.path.isdir(path):
         raise NotImplementedError(f"weights {path!r}: {ORBAX_REASON}")
+    state = gather_state_dict(model.state_dict(), layout)
     if path.endswith(".npz"):
         from ..utils.torch_weights import load_npz
 
-        model.load_state_dict(load_npz(path, model))
+        state = load_npz(path, state)
     elif path.endswith((".pkl", ".pth")):
         from ..utils.torch_weights import convert_torch_checkpoint
 
-        model.load_state_dict(convert_torch_checkpoint(path, model))
+        state = convert_torch_checkpoint(path, state)
     elif path.endswith(".pt"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if "model" not in ckpt:
             raise ValueError(f"weights {path!r}: not a port checkpoint (no 'model' entry)")
-        missing, unexpected = model.load_state_dict(ckpt["model"], strict=False)
+        unexpected = [k for k in ckpt["model"] if k not in state]
         if unexpected:
             raise KeyError(f"weights {path!r}: keys the model does not have: {unexpected[:5]}")
+        missing = [k for k in state if k not in ckpt["model"]]
         if missing:
             logger.info("weights %s: %d keys keep their initialized values", path, len(missing))
+        state.update(ckpt["model"])
     else:
         raise ValueError(f"unsupported weights file: {path}")
+    model.load_state_dict(shard_state_dict(state, layout))
     logger.info("Loaded weights %s", path)
     return model

@@ -19,7 +19,7 @@ optimizer never sees them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,12 +77,24 @@ def warmup_multistep_schedule(
     return schedule
 
 
-def clip_gradients(params: Sequence[nn.Parameter], clip_type: str, clip_value: float) -> None:
+def clip_gradients(params: Sequence[nn.Parameter], clip_type: str, clip_value: float,
+                   sharded: Sequence[bool] = (), model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> None:
     """optax's ``clip`` (elementwise, "value") or ``clip_by_global_norm``
-    ("norm") over the trainable parameters' gradients, in place."""
-    grads = [p.grad for p in params if p.grad is not None]
+    ("norm") over the trainable parameters' gradients, in place.
+
+    Under tensor parallelism (``sharded[i]``: ``params[i]`` holds a model
+    group's shard), the global norm sums each sharded gradient's squares over
+    the model group (``model_sum``) once and each whole one's once."""
+    live = [(p.grad, bool(sharded) and sharded[i]) for i, p in enumerate(params) if p.grad is not None]
+    grads = [g for g, _ in live]
     if clip_type == "norm":
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        squares = [torch.sum(g * g) for g in grads]
+        parts = [i for i, (_, part) in enumerate(live) if part]
+        if parts:
+            summed = model_sum(torch.stack([squares[i] for i in parts]))
+            for j, i in enumerate(parts):
+                squares[i] = summed[j]
+        norm = torch.sqrt(sum(squares))
         for g in grads:
             g.copy_(torch.where(norm < clip_value, g, g / norm * clip_value))
     else:

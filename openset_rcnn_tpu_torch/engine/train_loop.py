@@ -13,12 +13,19 @@ the end, ``do_test`` every ``TEST.EVAL_PERIOD`` but at ``MAX_ITER``. A
 resumed run restores step, parameters and momentum, and its loader starts
 again at epoch 0, as JAX's does.
 
-One device only: data-parallel training (``TPU.MESH_DATA`` or
-``MESH_MODEL`` other than 1, or a ``torch.distributed`` group of more than
-one process) comes with DDP (ROADMAP.md queue A item 5) and raises until
-then. ``TPU.EVAL_MESH`` is read by the JAX package only: on one device it is
-a no-op there too, and multi-process runs shard records per process here as
-there.
+Several GPUs: one process per GPU (``python -m openset_rcnn_tpu_torch.train
+--num-gpus N``, or torchrun), laid out as ``TPU.MESH_DATA x TPU.MESH_MODEL``
+(``parallel/mesh.py``, the twin of JAX's mesh at ``train_loop.py:272-311``).
+``do_train`` splits each global batch of ``SOLVER.IMS_PER_BATCH`` images over
+the data axis (``TrainLoader`` shards, ``:323-336``), reduces gradients with
+``DistributedDataParallel`` and shards the box head over the model axis;
+it trains as one process does at the same global batch, up to the order of
+float sums. Rank 0 writes metrics and the gathered checkpoints, and every rank
+evaluates with the gathered weights (``:399-408``). ``do_test`` shards the
+records over the processes and the evaluators gather the detections.
+``TPU.EVAL_MESH``, with which one JAX process splits its eval batch over its
+local chips (``:167-183``), has no twin here: the port drives one GPU per
+process, so ``--eval-only --num-gpus N`` evaluates on N processes instead.
 """
 from __future__ import annotations
 
@@ -182,6 +189,11 @@ def do_test(cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None, datase
     runs the plain versions of the kernels). ``transform``: the test
     transform (built from ``cfg`` when None), e.g. one whose ``read_image``
     supplies decoded images.
+
+    Under a process group each process infers every N-th record (N
+    processes) and the evaluators gather the detections, so every process
+    returns the metrics of the whole dataset; this is the port's
+    ``TPU.EVAL_MESH`` (see the module's docstring).
     """
     from ..evaluation.inference import Predictor, ProposalPredictor
     from ..evaluation.postprocess import PostprocessConfig
@@ -217,21 +229,6 @@ def do_test(cfg, state_dict: Optional[Mapping[str, torch.Tensor]] = None, datase
     return results
 
 
-DDP_ITEM = "data-parallel training (DDP over NCCL) is not ported yet: ROADMAP.md queue A item 5"
-
-
-def check_single_device(cfg) -> None:
-    """``do_train`` runs on one device: a data or model mesh axis other than
-    1, or a process group of more than one process, raises."""
-    from ..parallel import num_processes
-
-    if cfg.TPU.MESH_DATA != 1 or cfg.TPU.MESH_MODEL != 1:
-        raise NotImplementedError(f"TPU.MESH_DATA {cfg.TPU.MESH_DATA}, TPU.MESH_MODEL {cfg.TPU.MESH_MODEL}: "
-                                  f"{DDP_ITEM}")
-    if num_processes() > 1:
-        raise NotImplementedError(f"a process group of {num_processes()} processes: {DDP_ITEM}")
-
-
 def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool = False,
              device: Optional[Union[str, torch.device]] = None):
     """Train the model of ``cfg`` on ``cfg.DATASETS.TRAIN`` from a seeded
@@ -245,12 +242,18 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
             the op whose backward produced a NaN (much slower; debug only).
         device: the GPU unless given (``"cpu"`` runs the plain versions of
             the kernels); with no GPU and no device it raises.
+
+    Every rank of a process group calls it (``parallel.launch``); outside a
+    group ``TPU.MESH_DATA x TPU.MESH_MODEL`` must be 1, and a product that
+    does not lay out the group raises ``ValueError`` (``make_layout``).
     """
     import contextlib
     import time
 
     from ..data import device_prefetch, register_builtin_datasets
     from ..device import resolve_device
+    from ..parallel import gather_object
+    from ..parallel.mesh import gather_state_dict, make_layout
     from .checkpoint import Checkpointer
     from .events import EventWriter
     from .train_state import Trainer
@@ -259,23 +262,32 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
     if cfg.SEED < 0:
         # d2 semantics: negative seed -> fresh random seed per run
         seed = (int(time.time() * 1000) ^ os.getpid()) % (2**31)
+        seed = gather_object(seed)[0]  # every rank takes rank 0's
         cfg = cfg.clone()
         cfg.SEED = seed
         cfg.freeze()
         logger.info("using random seed %d", seed)
-    check_single_device(cfg)
+    layout = make_layout(cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL)
+    if cfg.SOLVER.IMS_PER_BATCH % layout.data:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not split over {layout.data} "
+                         "data-parallel processes")
     register_builtin_datasets()
     seed = max(cfg.SEED, 0)
-    trainer = Trainer(cfg, device, seed=seed)
-    checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+    trainer = Trainer(cfg, device, seed=seed, layout=layout)
+    checkpointer = Checkpointer(cfg.OUTPUT_DIR, layout)
     checkpointer.resume_or_load(trainer.state, cfg.MODEL.WEIGHTS, resume)
     start_iter = trainer.state.step
+    if layout.distributed:
+        logger.info("training as rank (data %d, model %d) of a %d x %d layout", layout.data_index,
+                    layout.model_index, layout.data, layout.model)
 
     loader = TrainLoader(
         load_train_records(cfg),
         build_train_transform(cfg),
-        batch_size=cfg.SOLVER.IMS_PER_BATCH,
+        batch_size=cfg.SOLVER.IMS_PER_BATCH // layout.data,
         seed=seed,
+        shard_id=layout.data_index,
+        num_shards=layout.data,
         filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
         num_workers=cfg.DATALOADER.NUM_WORKERS,
     )
@@ -312,7 +324,8 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
             if ckpt_period and it % ckpt_period == 0:
                 checkpointer.save(trainer.state, it)
             if eval_period and it % eval_period == 0 and it != max_iter:
-                results = do_test(cfg, trainer.model.state_dict(), device=device, seed=seed)
+                weights = gather_state_dict(trainer.model.state_dict(), layout)
+                results = do_test(cfg, weights, device=device, seed=seed)
                 for ds, res in results.items():
                     writer.write(it, {f"{ds}/{k}": v for k, v in res.items() if np.isscalar(v)})
         if profiler is not None:
@@ -336,7 +349,10 @@ def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.__exit__(None, None, None)
+    from ..parallel import process_index
+
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
+    rank = process_index()
+    path = os.path.join(profile_dir, "trace.json" if rank == 0 else f"trace_rank{rank}.json")
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)

@@ -122,7 +122,7 @@ class OpensetCocoEvaluator:
     def evaluate(self, resume: bool = False) -> Dict[str, float]:
         # multi-process eval: merge per-process predictions (reference
         # comm.gather, os_coco_evaluation.py:163-169)
-        from ..parallel import gather_object, num_processes
+        from ..parallel import gather_object, is_main_process, num_processes
 
         if not resume and num_processes() > 1:
             merged = []
@@ -132,7 +132,7 @@ class OpensetCocoEvaluator:
 
         if resume:
             self.load_predictions()
-        elif self.output_dir:
+        elif self.output_dir and is_main_process():
             self.save_predictions()
 
         coco = CocoJson(self.meta.json_file)
@@ -174,7 +174,7 @@ class OpensetCocoEvaluator:
             results[name] = round(float(value) * 100, 4) if value != -1 else float("nan")
 
         # PR-curve dumps for offline analysis (os_coco_evaluation.py:428-431)
-        if self.output_dir:
+        if self.output_dir and is_main_process():
             os.makedirs(self.output_dir, exist_ok=True)
             np.save(os.path.join(self.output_dir, "known_precision_bbox.npy"), acc["precision"])
             np.save(os.path.join(self.output_dir, "known_recall_bbox.npy"), acc["recall"])

@@ -212,7 +212,7 @@ class OpensetVocEvaluator:
     def evaluate(self, resume: bool = False) -> Dict[str, float]:
         # multi-process eval: merge per-process detections (reference
         # comm.gather, pascal_voc_evaluation.py:106)
-        from ..parallel import gather_object, num_processes
+        from ..parallel import gather_object, is_main_process, num_processes
 
         if resume:
             self._load_detections()
@@ -224,7 +224,7 @@ class OpensetVocEvaluator:
                     merged[cid].extend(dets)
             self._dets = merged
 
-        if self.output_dir:
+        if self.output_dir and is_main_process():  # the merged detections: one writer
             det_dir = os.path.join(self.output_dir, "pascal_voc_eval")
             os.makedirs(det_dir, exist_ok=True)
             for cid, dets in self._dets.items():

@@ -23,6 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.anchors import fpn_anchors
 from ..ops.box_transforms import Box2BoxTransform, Box2BoxTransformLinear
+from ..ops.losses import LOCAL, LocalSum
 from ..ops.roi_align import ADAPTIVE
 from ..ops.sampling import draw_uniforms
 from ..structures import ImageBatch, RawDetections
@@ -365,12 +366,35 @@ def inference_forward(
     return raw
 
 
-def drop_path_masks(rates: Sequence[float], batch_size: int, generator: Optional[torch.Generator],
+COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",
+               "rpn/num_proposals", "roi_head/num_fg_samples", "roi_head/num_bg_samples")
+
+
+def drop_path_masks(rates: Sequence[float], batch_size: int, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
     """(len(rates), B) per-sample keep masks, keep where u < 1 - rate (the
     Bernoulli draw of JAX's ``_drop_path``), u uniform from ``generator``."""
     u = draw_uniforms((len(rates), batch_size), device, generator)
     return u < torch.tensor([1.0 - r for r in rates], device=device)[:, None]
+
+
+def sampling_draws(model: OpensetRCNN, spec: ModelSpec, batch_size: int, num_anchors: int,
+                   level_sizes: Sequence[int], num_gt: int, generator: torch.Generator,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every random draw of a training step on ``batch_size`` images, from
+    ``generator`` in this order: "drop_path" (len(model.branch_rates), B)
+    keep masks when the backbone drops paths; "rpn" (B, 2, 2, R) for
+    ``rpn_targets``; "roi" (B, 3, P + G) for ``label_and_sample_proposals``,
+    with P = sum over levels of min(pre_nms_topk_train, level size) and G
+    ``num_gt``. The one place a training step draws: a data-parallel rank
+    draws the global batch's and keeps its images' rows."""
+    out = {}
+    if any(r > 0 for r in model.branch_rates):
+        out["drop_path"] = drop_path_masks(model.branch_rates, batch_size, generator, device)
+    out["rpn"] = draw_uniforms((batch_size, 2, 2, num_anchors), device, generator)
+    p = sum(min(spec.pre_nms_topk_train, s) for s in level_sizes) + num_gt
+    out["roi"] = draw_uniforms((batch_size, 3, p), device, generator)
+    return out
 
 
 def training_losses_and_stats(
@@ -379,31 +403,35 @@ def training_losses_and_stats(
     spec: ModelSpec,
     anchors: torch.Tensor,
     level_sizes: Sequence[int],
-    generator: Optional[torch.Generator] = None,
-    uniforms: Optional[Mapping[str, torch.Tensor]] = None,
+    uniforms: Mapping[str, torch.Tensor],
     mark: Mark = None,
+    global_sum: LocalSum = LOCAL,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The six losses and ten training scalars of one batch.
 
-    Port of ``openset_rcnn_tpu/models/detector.py:343-466``. The sampling
-    draws come from ``uniforms`` when given, {"rpn": (B, 2, 2, R), "roi":
-    (B, 3, P + G)} (see ``rpn_targets`` and ``label_and_sample_proposals``),
-    else from ``generator``. So do the backbone's drop-path keep masks
-    (Swin, ViT with a rate above 0; JAX's ``dropout`` stream): "drop_path",
-    (len(model.branch_rates), B) bool, else drawn from ``generator`` before
-    the forward. Drop-path is on here only: ``inference_forward`` never
-    passes masks, whatever the module's ``training`` flag. Targets and
+    Port of ``openset_rcnn_tpu/models/detector.py:343-466``. ``uniforms``
+    holds the step's random draws (``sampling_draws``, or a test's): "rpn"
+    (B, 2, 2, R) and "roi" (B, 3, P + G) for the samplers (see
+    ``rpn_targets`` and ``label_and_sample_proposals``), and, when the
+    backbone drops paths (Swin, ViT with a rate above 0; JAX's ``dropout``
+    stream), "drop_path", (len(model.branch_rates), B) bool keep masks.
+    Drop-path is on here only: ``inference_forward`` never passes masks,
+    whatever the module's ``training`` flag. Targets and
     proposals carry no gradient (the JAX ``stop_gradient`` on the
     proposals' inputs). ``mark(stage)``, when
     given, is called after each stage of the forward ("backbone", "rpn":
     head, targets and losses, "sampling": proposals and ROI sampling,
     "roi_align", "heads": heads, ROI losses and scalars).
+
+    ``global_sum`` (``ops/losses.py``): on a data-parallel rank, the sum over
+    the data group. The batch is then this rank's share of the global batch;
+    every loss is this rank's numerator over the global batch's denominator
+    (JAX's losses are global-batch values under GSPMD), so the ranks' losses
+    add up to the one-process loss, and the scalars are the global batch's:
+    counts summed, ratios of summed numerators and denominators.
     """
-    uniforms = uniforms or {}
     linear_tf = Box2BoxTransformLinear(normalize_by_size=True)
-    keep = uniforms.get("drop_path")
-    if keep is None and any(r > 0 for r in model.branch_rates):
-        keep = drop_path_masks(model.branch_rates, batch.images.shape[0], generator, batch.images.device)
+    keep = uniforms["drop_path"] if any(r > 0 for r in model.branch_rates) else None
     fpn_feats = model.features(batch.images, batch.image_hw, drop_path=keep)
     if mark:
         mark("backbone")
@@ -417,7 +445,7 @@ def training_losses_and_stats(
         objectness_positive_fraction=spec.rpn_obj_positive_fraction,
         reg_thresholds=spec.rpn_reg_thresholds,
         obj_thresholds=spec.rpn_obj_thresholds,
-        generator=generator, uniforms=uniforms.get("rpn"),
+        uniforms=uniforms["rpn"],
     )
     losses = rpn_losses(
         anchors, pred_deltas, pred_ctr, targets, linear_tf,
@@ -426,6 +454,7 @@ def training_losses_and_stats(
         ctr_weight=spec.rpn_ctr_weight,
         box_reg_loss_type=spec.rpn_box_reg_loss_type,
         ctr_smooth_l1_beta=spec.rpn_ctr_smooth_l1_beta,
+        global_sum=global_sum,
     )
     if mark:
         mark("rpn")
@@ -439,7 +468,7 @@ def training_losses_and_stats(
         positive_fraction=spec.roi_positive_fraction,
         iou_threshold=spec.roi_iou_threshold,
         num_classes=spec.num_classes,
-        generator=generator, uniforms=uniforms.get("roi"),
+        uniforms=uniforms["roi"],
     )
     if mark:
         mark("sampling")
@@ -456,34 +485,35 @@ def training_losses_and_stats(
         box_smooth_l1_beta=spec.box_smooth_l1_beta,
         iou_smooth_l1_beta=spec.iou_smooth_l1_beta,
         box_reg_loss_type=spec.box_reg_loss_type,
+        global_sum=global_sum,
     ))
     id_map = torch.tensor(spec.id_map, dtype=torch.int64, device=anchors.device)
     losses["loss_dml"] = pln_loss(
         emb, reps, rois, id_map, spec.num_known_classes, spec.reps_per_class,
         spec.pln_alpha, spec.pln_beta, spec.pln_iou_threshold, spec.pln_loss_weight, spec.distance_type,
+        global_sum,
     )
-    losses["loss_cls"] = classifier_loss(logits, rois, id_map, spec.cls_loss_weight)
+    losses["loss_cls"] = classifier_loss(logits, rois, id_map, spec.cls_loss_weight, global_sum)
 
-    # the reference's EventStorage scalars, kept on the device
-    B = batch.images.shape[0]
-    stats = {
-        "rpn/num_pos_anchors": (targets.reg_labels == 1).sum() / B,
-        "rpn/num_neg_anchors": (targets.reg_labels == 0).sum() / B,
-        "rpn/obj_num_pos_anchors": (targets.obj_labels == 1).sum() / B,
-        "rpn/obj_num_neg_anchors": (targets.obj_labels == 0).sum() / B,
-        "rpn/num_proposals": proposals.valid.sum() / B,
-        "roi_head/num_fg_samples": rois.is_fg.sum() / B,
-        "roi_head/num_bg_samples": (rois.valid & ~rois.is_fg).sum() / B,
-    }
+    # the reference's EventStorage scalars over the global batch, kept on the device
+    B = batch.images.shape[0] * global_sum.size
     labels = id_map[rois.gt_classes]
     pred = torch.argmax(logits.detach(), dim=-1)
     valid = rois.valid & (labels >= 0)
     fg = valid & (labels < spec.num_known_classes)
-    n_valid = torch.clamp(valid.sum(), min=1)
-    n_fg = torch.clamp(fg.sum(), min=1)
-    stats["softmax_classifier/cls_accuracy"] = ((pred == labels) & valid).sum() / n_valid
-    stats["softmax_classifier/fg_cls_accuracy"] = ((pred == labels) & fg).sum() / n_fg
-    stats["softmax_classifier/false_negative"] = ((pred == spec.num_known_classes) & fg).sum() / n_fg
+    sums = global_sum(torch.stack([
+        (targets.reg_labels == 1).sum(), (targets.reg_labels == 0).sum(),
+        (targets.obj_labels == 1).sum(), (targets.obj_labels == 0).sum(),
+        proposals.valid.sum(), rois.is_fg.sum(), (rois.valid & ~rois.is_fg).sum(),
+        ((pred == labels) & valid).sum(), ((pred == labels) & fg).sum(),
+        ((pred == spec.num_known_classes) & fg).sum(), valid.sum(), fg.sum(),
+    ]))
+    stats = {name: sums[i] / B for i, name in enumerate(COUNT_STATS)}
+    n_valid = torch.clamp(sums[10], min=1)
+    n_fg = torch.clamp(sums[11], min=1)
+    stats["softmax_classifier/cls_accuracy"] = sums[7] / n_valid
+    stats["softmax_classifier/fg_cls_accuracy"] = sums[8] / n_fg
+    stats["softmax_classifier/false_negative"] = sums[9] / n_fg
     if mark:
         mark("heads")
     return losses, stats

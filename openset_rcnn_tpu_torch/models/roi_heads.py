@@ -29,7 +29,7 @@ from torch import nn
 
 from ..ops.box_transforms import Box2BoxTransform
 from ..ops.boxes import clip_boxes, pairwise_iou
-from ..ops.losses import dense_box_regression_loss, masked_sum, smooth_l1, softmax_cross_entropy
+from ..ops.losses import LOCAL, LocalSum, dense_box_regression_loss, masked_sum, smooth_l1, softmax_cross_entropy
 from ..ops.matcher import match
 from ..ops.roi_align import ADAPTIVE, RoIAlignFunction, assign_levels, assign_levels_window_fit
 from ..ops.sampling import sample_balanced_indices
@@ -44,27 +44,70 @@ def _dense_init(layer: nn.Linear, std: float, generator: torch.Generator) -> Non
 class BoxHead(nn.Module):
     """FastRCNNConvFCHead equivalent: flatten + 2x FC + ReLU. The FCs run in
     ``compute_dtype`` (None: the input's dtype) with the f32 weights cast to
-    it; the features come out f32 for the numerics-sensitive heads."""
+    it; the features come out f32 for the numerics-sensitive heads.
+
+    ``shard(layout)`` makes both FCs tensor-parallel over the layout's model
+    group (``TPU.MESH_MODEL`` > 1, ``parallel/mesh.py``): fc1 keeps its rank's
+    ``fc_dim / M`` output rows (column-parallel; the ReLU acts on the shard),
+    fc2 the matching input columns (row-parallel); fc2's partial outputs are
+    summed over the group in f32, its bias added once after the sum and the
+    result rounded once to the compute dtype, as the one-process GEMM sums in
+    f32 and rounds once. The gradient of fc1's input is summed over the group
+    in the backward. ``parallel.mesh.shard_state_dict`` cuts a whole
+    (one-process) state dict to a rank's shards."""
 
     def __init__(self, in_dim: int, fc_dim: int = 1024, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.fc1 = nn.Linear(in_dim, fc_dim)
         self.fc2 = nn.Linear(fc_dim, fc_dim)
+        self.layout = None  # a parallel.mesh.Layout once sharded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(*x.shape[:-3], -1)
+        if self.layout is not None:
+            return self._forward_sharded(x)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         for fc in (self.fc1, self.fc2):
             x = torch.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
         return x.float()
 
+    def _forward_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import copy_to_model_group, sum_over_model_group
+
+        x = copy_to_model_group(x, self.layout)
+        dtype = self.compute_dtype or x.dtype
+        x = x.to(dtype)
+        h = torch.relu(F.linear(x, self.fc1.weight.to(dtype), self.fc1.bias.to(dtype)))
+        partial = F.linear(h.float(), self.fc2.weight.to(dtype).float())
+        out = sum_over_model_group(partial, self.layout) + self.fc2.bias.to(dtype).float()
+        return torch.relu(out.to(dtype)).float()
+
+    def shard(self, layout) -> None:
+        """Keep this rank's shards of fc1 and fc2 (in place)."""
+        from ..parallel.mesh import shard
+
+        for fc, dim in ((self.fc1, 0), (self.fc2, 1)):
+            fc.weight = nn.Parameter(shard(fc.weight.data, dim, layout), requires_grad=fc.weight.requires_grad)
+        self.fc1.bias = nn.Parameter(shard(self.fc1.bias.data, 0, layout), requires_grad=self.fc1.bias.requires_grad)
+        self.fc1.out_features = self.fc2.in_features = self.fc1.weight.shape[0]
+        self.layout = layout
+
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Caffe2 Xavier (uniform, fan_in) weights, zero biases."""
-        for fc in (self.fc1, self.fc2):
-            bound = math.sqrt(3.0 / fc.in_features)
-            nn.init.uniform_(fc.weight, -bound, bound, generator=generator)
+        """Caffe2 Xavier (uniform, fan_in) weights, zero biases; a sharded
+        head draws the whole matrices, as one process does, and keeps its
+        shards."""
+        from ..parallel.mesh import shard
+
+        m = 1 if self.layout is None else self.layout.model
+        for fc, dim, fan_in in ((self.fc1, 0, self.fc1.in_features), (self.fc2, 1, self.fc2.in_features * m)):
+            whole = list(fc.weight.shape)
+            whole[dim] *= m
+            bound = math.sqrt(3.0 / fan_in)
+            w = nn.init.uniform_(torch.empty(whole, device=fc.weight.device), -bound, bound, generator=generator)
+            with torch.no_grad():
+                fc.weight.copy_(w if m == 1 else shard(w, dim, self.layout))
             nn.init.zeros_(fc.bias)
 
 
@@ -135,14 +178,14 @@ def label_and_sample_proposals(
     positive_fraction: float = 0.25,
     iou_threshold: float = 0.5,
     num_classes: int = 80,
-    generator: Optional[torch.Generator] = None,
-    uniforms: Optional[torch.Tensor] = None,
+    *,
+    uniforms: torch.Tensor,
 ) -> SampledRois:
     """The GT boxes are appended to the proposals (objectness 1.0; invalid GT
     rows stay masked), matched at ``iou_threshold`` without rescue, and
     ``num_samples`` balanced samples are drawn per image. ``uniforms``
     (B, 3, P + G): per image the draws of (kp, kn, kt) of the JAX key tree
-    ``split(key, 3)``; drawn from ``generator`` when None."""
+    ``split(key, 3)``."""
     boxes = torch.cat([proposals.boxes, gt.boxes], dim=1)
     scores = torch.cat([proposals.scores, gt.valid.to(proposals.scores.dtype)], dim=1)
     valid = torch.cat([proposals.valid, gt.valid], dim=1)
@@ -153,7 +196,7 @@ def label_and_sample_proposals(
     has_gt = gt.valid.any(dim=1, keepdim=True)
     fg = (res.labels == 1) & valid & has_gt
     bg = (res.labels == 0) & valid
-    s = sample_balanced_indices(fg, bg, num_samples, positive_fraction, generator, uniforms)
+    s = sample_balanced_indices(fg, bg, num_samples, positive_fraction, uniforms)
     gt_idx = torch.gather(res.matched_idx, 1, s.indices)
     background = torch.full_like(gt_idx, num_classes)
     classes = torch.where(s.is_pos, torch.gather(gt.classes.long(), 1, gt_idx), background)
@@ -184,11 +227,12 @@ def box_iou_losses(
     box_smooth_l1_beta: float = 0.0,
     iou_smooth_l1_beta: float = 0.0,
     box_reg_loss_type: str = "smooth_l1",
+    global_sum: LocalSum = LOCAL,
 ) -> Dict[str, torch.Tensor]:
     """Box regression and IoU prediction over the foreground, both over the
-    number of valid samples."""
+    number of valid samples of the global batch (``global_sum``)."""
     fg = rois.is_fg & (rois.gt_classes < num_classes)
-    denom = torch.clamp(rois.valid.sum(), min=1).float()
+    denom = torch.clamp(global_sum(rois.valid.sum()), min=1).float()
     if box_reg_loss_type == "smooth_l1":
         gt_deltas = transform.get_deltas(rois.boxes, rois.gt_boxes)
         box_loss = masked_sum(smooth_l1(pred_deltas, gt_deltas, box_smooth_l1_beta), fg)
@@ -216,11 +260,15 @@ def pln_loss(
     iou_threshold: float,
     loss_weight: float,
     distance_type: str = "COS",
+    global_sum: LocalSum = LOCAL,
 ) -> torch.Tensor:
     """Instance-level contrastive loss of the PLN: intra-class and
     inter-class hinges on the foreground plus a prototype-separation hinge,
     over the number of sampled proposals (``sum(valid)``, the reference's
-    ``gt_classes.numel()``)."""
+    ``gt_classes.numel()``) of the global batch (``global_sum``). The
+    prototype term does not depend on the batch: every data-parallel rank
+    computes it whole and adds its share, 1 / ``global_sum.size``, so the
+    ranks' losses count it once."""
     B, S, E = emb.shape
     known_ids = id_map[rois.gt_classes]  # (B, S); -1 or known index; bg -> K
     fg = (known_ids >= 0) & (known_ids < num_known_classes) & (rois.ious > iou_threshold) & rois.valid
@@ -255,9 +303,9 @@ def pln_loss(
     loss = (
         torch.sum(torch.where(fg_flat, torch.relu(intra - alpha), zero))
         + torch.sum(torch.where(fg_flat, torch.relu(beta - inter), zero))
-        + torch.sum(torch.relu(beta + alpha - c_dist))
+        + torch.sum(torch.relu(beta + alpha - c_dist)) / global_sum.size
     )
-    denom = torch.clamp(rois.valid.sum(), min=1).float()
+    denom = torch.clamp(global_sum(rois.valid.sum()), min=1).float()
     return loss_weight * loss / denom
 
 
@@ -266,10 +314,11 @@ def classifier_loss(
     rois: SampledRois,
     id_map: torch.Tensor,
     cls_loss_weight: float,
+    global_sum: LocalSum = LOCAL,
 ) -> torch.Tensor:
     labels = id_map[rois.gt_classes]  # bg -> K
     valid = rois.valid & (labels >= 0)
-    return cls_loss_weight * softmax_cross_entropy(logits, torch.clamp(labels, min=0), valid)
+    return cls_loss_weight * softmax_cross_entropy(logits, torch.clamp(labels, min=0), valid, global_sum)
 
 
 # --------------------------------------------------------------------------

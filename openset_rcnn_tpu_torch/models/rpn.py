@@ -20,8 +20,8 @@ from torch import nn
 from ..ops.box_transforms import Box2BoxTransformLinear
 from ..ops.boxes import clip_boxes, nonempty
 from ..ops.iou_match import iou_match
-from ..ops.losses import dense_box_regression_loss, masked_sum, smooth_l1
-from ..ops.sampling import draw_uniforms, subsample_labels
+from ..ops.losses import LOCAL, LocalSum, dense_box_regression_loss, masked_sum, smooth_l1
+from ..ops.sampling import subsample_labels
 from ..ops.targets import centerness_targets
 from ..ops.topk import stable_topk
 from ..structures import GroundTruth, Proposals
@@ -92,19 +92,16 @@ def rpn_targets(
     objectness_positive_fraction: float = 1.0,
     reg_thresholds: Sequence[float] = (0.3, 0.7),
     obj_thresholds: Sequence[float] = (0.1, 0.3),
-    generator: Optional[torch.Generator] = None,
-    uniforms: Optional[torch.Tensor] = None,
+    *,
+    uniforms: torch.Tensor,
 ) -> RPNTargets:
     """Anchor targets for (R, 4) anchors and padded GT.
 
     ``uniforms`` (B, 2, 2, R): the sampling draws per image, [regression,
     objectness] x [positives, negatives] (the JAX key tree per image:
-    split -> (k_reg, k_obj), each split -> (kp, kn)); drawn from
-    ``generator`` when None.
+    split -> (k_reg, k_obj), each split -> (kp, kn)).
     """
     m = iou_match(anchors, gt.boxes, gt.valid)
-    if uniforms is None:
-        uniforms = draw_uniforms((gt.boxes.shape[0], 2, 2, anchors.shape[0]), anchors.device, generator)
     reg_labels = subsample_labels(_bin_labels(m.max_iou, m.rescued, reg_thresholds),
                                   batch_size_per_image, positive_fraction, uniforms=uniforms[:, 0])
     obj_labels = subsample_labels(_bin_labels(m.max_iou, m.rescued, obj_thresholds),
@@ -124,9 +121,11 @@ def rpn_losses(
     ctr_weight: float = 1.0,
     box_reg_loss_type: str = "iou",
     ctr_smooth_l1_beta: float = 0.0,
+    global_sum: LocalSum = LOCAL,
 ) -> Dict[str, torch.Tensor]:
     """IoU-family loss on sampled positives + L1 centerness on sampled
-    positives and negatives, both over (batch_size_per_image * B)."""
+    positives and negatives, both over (batch_size_per_image * B), B the
+    global batch: this rank's images times ``global_sum.size``."""
     pos = targets.reg_labels == 1
     if box_reg_loss_type in ("iou", "giou", "diou", "ciou"):
         pred_boxes = transform.apply_deltas(pred_deltas, anchors[None])
@@ -138,7 +137,7 @@ def rpn_losses(
         raise ValueError(box_reg_loss_type)
     ctr_loss = masked_sum(smooth_l1(pred_centerness, targets.gt_centerness, ctr_smooth_l1_beta),
                           targets.obj_labels != -1)
-    normalizer = batch_size_per_image * pred_deltas.shape[0]
+    normalizer = batch_size_per_image * pred_deltas.shape[0] * global_sum.size
     return {
         "loss_rpn_loc": loc_weight * loc_loss / normalizer,
         "loss_rpn_ctr": ctr_weight * ctr_loss / normalizer,

@@ -4,6 +4,13 @@ Port of ``openset_rcnn_tpu/ops/losses.py:17-131``: fvcore's smooth-L1 and
 the reference's IoU-family box-regression losses as masked reductions, so
 padded rows contribute exactly zero. Reductions that are differentiated use
 ``torch.amax``/``amin``, which share the gradient among ties as JAX's do.
+
+Global batch: the JAX package's losses are values over the global batch
+(GSPMD sums every ``sum(valid)`` over all devices). A data-parallel rank sees
+only its own rows, so each loss denominator goes through a ``global_sum``
+hook: ``LOCAL`` (one process, the batch is the global batch) or
+``parallel.mesh.GroupSum`` (the sum over the data group). Numerators stay
+local, and the ranks' losses add up to the global loss.
 """
 from __future__ import annotations
 
@@ -12,6 +19,19 @@ import math
 import torch
 
 from .boxes import elementwise_iou
+
+
+class LocalSum:
+    """The ``global_sum`` hook of one process: the identity, over a data
+    group of ``size`` 1."""
+
+    size = 1
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+LOCAL = LocalSum()
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
@@ -106,11 +126,13 @@ def dense_box_regression_loss(pred_boxes, gt_boxes, fg_mask, loss_type: str = "i
     return _DENSE_LOSSES[loss_type](pred_boxes, gt_boxes, fg_mask)
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+                          global_sum: LocalSum = LOCAL) -> torch.Tensor:
     """Mean cross-entropy over valid rows (torch ``cross_entropy(reduction=
-    'mean')``), written as the JAX version computes it."""
+    'mean')``), written as the JAX version computes it; the mean is over the
+    global batch's valid rows (``global_sum``)."""
     zmax = torch.amax(logits, dim=-1)
     lse = torch.log(torch.sum(torch.exp(logits - zmax[..., None]), dim=-1)) + zmax
     nll = lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
+    denom = torch.clamp(global_sum(valid.sum()), min=1)
     return torch.sum(torch.where(valid, nll, torch.zeros_like(nll))) / denom

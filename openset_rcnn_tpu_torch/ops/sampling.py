@@ -4,22 +4,22 @@ Port of ``openset_rcnn_tpu/ops/sampling.py:18-123``: rank the candidates by
 i.i.d. uniform keys and keep the ranks below a quota, which is a uniform
 random subset of the quota's size. Leading batch dims are allowed.
 
-Randomness: each function takes its uniform draws as an optional tensor
+Randomness: each function takes its uniform draws as a tensor
 (``uniforms``), so a test can feed it the very numbers the JAX version drew
-from its key tree; otherwise it draws them from ``generator`` (on the
-device of the labels). Ties among the draws keep JAX's order: ``top_k`` and
+from its key tree; a training step draws them all in one place
+(``models.detector.sampling_draws``). Ties among the draws keep JAX's order: ``top_k`` and
 the stable ``argsort`` put the lower index first (``ops/topk.py``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from .topk import stable_topk
 
 
-def draw_uniforms(shape, device, generator: Optional[torch.Generator]) -> torch.Tensor:
+def draw_uniforms(shape, device, generator: torch.Generator) -> torch.Tensor:
     """U[0, 1) f32 draws from ``generator``, which must live on ``device``."""
     return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
 
@@ -50,8 +50,7 @@ def subsample_labels(
     labels: torch.Tensor,
     num_samples: int,
     positive_fraction: float,
-    generator: Optional[torch.Generator] = None,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: torch.Tensor,
 ) -> torch.Tensor:
     """``labels`` (..., N) in {-1, 0, 1} with the unsampled entries set to -1.
 
@@ -59,8 +58,6 @@ def subsample_labels(
     num_neg = min(#neg, num_samples - num_pos). ``uniforms`` (..., 2, N):
     the positives' draws, then the negatives'.
     """
-    if uniforms is None:
-        uniforms = draw_uniforms((*labels.shape[:-1], 2, labels.shape[-1]), labels.device, generator)
     pos, neg = labels == 1, labels == 0
     num_pos = torch.clamp(pos.sum(-1), max=int(num_samples * positive_fraction))
     num_neg = torch.minimum(neg.sum(-1), num_samples - num_pos)
@@ -82,15 +79,12 @@ def sample_balanced_indices(
     neg_mask: torch.Tensor,
     num_samples: int,
     positive_fraction: float,
-    generator: Optional[torch.Generator] = None,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: torch.Tensor,
 ) -> SampledIndices:
     """Exactly ``num_samples`` gather indices: min(#pos, frac * S) positives,
     then negatives, then padding slots (valid False). ``uniforms``
     (..., 3, N): the positives' ranks, the negatives' ranks, the order's
     tie-break."""
-    if uniforms is None:
-        uniforms = draw_uniforms((*pos_mask.shape[:-1], 3, pos_mask.shape[-1]), pos_mask.device, generator)
     num_pos = torch.clamp(pos_mask.sum(-1), max=int(num_samples * positive_fraction))
     num_neg = torch.minimum(neg_mask.sum(-1), num_samples - num_pos)
     pos_keep = pos_mask & (_rank_within(pos_mask, uniforms[..., 0, :]) < num_pos[..., None])

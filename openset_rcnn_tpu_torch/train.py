@@ -1,18 +1,27 @@
-"""Openset-RCNN training/eval CLI of the PyTorch port, on one GPU.
+"""Openset-RCNN training/eval CLI of the PyTorch port, on one GPU or several.
 
 The twin of the JAX package's ``train.py`` (same flags, with ``--num-gpus``
 for ``--num-chips``):
 
   python -m openset_rcnn_tpu_torch.train \\
       --config-file configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml \\
+      [--num-gpus N [--num-machines M --machine-rank r --dist-url URL]] \\
       [--eval-only [--test_iter N]] [--resume] [--resume_test] \\
       [--eval_type openset|cls_agn_unk|proposals] [--opendet-benchmark] \\
       [--profile-steps N] [--debug-nans] [KEY VALUE ...]
 
-It trains on the GPU (``main(args, device="cpu")`` runs the plain versions of
-the kernels on the CPU). Data-parallel training is not ported yet (ROADMAP.md
-queue A item 5): ``--num-gpus`` > 1, ``--num-machines`` > 1 and
-``--dist-url`` raise ``NotImplementedError``.
+Several GPUs, as d2's ``launch`` (reference ``train.py:287-294``):
+``--num-gpus N`` starts N processes on this machine, one per GPU, in an NCCL
+group; on M machines run the command on each with its ``--machine-rank r``
+and ``--dist-url tcp://<machine 0>:<port>``, and the ranks are r x N +
+local. ``TPU.MESH_DATA`` becomes N x M / ``TPU.MESH_MODEL``
+(``parallel/mesh.py``). Without ``--num-gpus``, a config whose
+``MESH_DATA x MESH_MODEL`` exceeds 1 starts that many processes. Under
+torchrun (``RANK`` and ``WORLD_SIZE`` set) each process joins torchrun's
+group. ``--dist-url`` with one process forms a group of one.
+
+It runs on the GPU; ``main(args, device="cpu")`` runs the plain versions of
+the kernels on the CPU, in gloo processes when several are asked for.
 """
 from __future__ import annotations
 
@@ -21,12 +30,13 @@ import logging
 import os
 from typing import Optional, Union
 
+from openset_rcnn_tpu_torch.parallel import initialize_distributed, launch, num_processes, process_index
+
 logger = logging.getLogger("openset_rcnn_tpu_torch")
 
 
-def setup(args):
-    """The config of ``args`` (file, flags, KEY VALUE pairs), frozen; writes
-    ``config.yaml`` and starts ``log.txt`` in its OUTPUT_DIR."""
+def merged_cfg(args):
+    """The config of ``args``: file, flags, KEY VALUE pairs."""
     from openset_rcnn_tpu_torch.config import get_default_cfg
 
     cfg = get_default_cfg()
@@ -35,33 +45,99 @@ def setup(args):
     if args.opendet_benchmark:
         cfg.OPENDET_BENCHMARK = True
     cfg.merge_from_list(args.opts)
+    return cfg
+
+
+def setup(args):
+    """The config of ``args``, frozen; writes ``config.yaml`` and starts
+    ``log.txt`` in its OUTPUT_DIR."""
+    cfg = merged_cfg(args)
     if args.num_gpus > 0:
-        # --num-gpus N sets the data-parallel axis; only 1 runs until DDP
-        cfg.TPU.MESH_DATA = args.num_gpus
+        # the processes of every machine lay out as data x model
+        cfg.TPU.MESH_DATA = max(1, args.num_gpus * args.num_machines // cfg.TPU.MESH_MODEL)
     cfg.freeze()
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    rank = process_index()
 
     fmt = logging.Formatter("[%(asctime)s %(name)s]: %(message)s", datefmt="%m/%d %H:%M:%S")
     logging.basicConfig(level=logging.INFO, format=fmt._fmt, datefmt=fmt.datefmt)
     logger.setLevel(logging.INFO)
-    # log.txt of this OUTPUT_DIR, once, whatever handlers the process had
-    path = os.path.abspath(os.path.join(cfg.OUTPUT_DIR, "log.txt"))
+    # log.txt of this OUTPUT_DIR (log.txt.rank<r> for rank r > 0), once, whatever handlers the process had
+    path = os.path.abspath(os.path.join(cfg.OUTPUT_DIR, "log.txt" if rank == 0 else f"log.txt.rank{rank}"))
     root = logging.getLogger()
     if not any(getattr(h, "baseFilename", None) == path for h in root.handlers):
         handler = logging.FileHandler(path)
         handler.setFormatter(fmt)
         root.addHandler(handler)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if rank == 0:
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     logger.info("Running with config:\n%s", cfg.dump())
     return cfg
 
 
+def processes_per_machine(args, cfg, device_type: str) -> int:
+    """``--num-gpus``, else the config's ``MESH_DATA x MESH_MODEL`` over the
+    machines (``MESH_DATA -1``: every visible GPU)."""
+    if args.num_gpus > 0:
+        return args.num_gpus
+    if cfg.TPU.MESH_DATA == -1:
+        import torch
+
+        return torch.cuda.device_count() if device_type == "cuda" else 1
+    return max(1, cfg.TPU.MESH_DATA * cfg.TPU.MESH_MODEL // args.num_machines)
+
+
 def main(args, device: Optional[Union[str, "torch.device"]] = None):  # noqa: F821
-    """Run the CLI's task; ``device`` is the GPU unless given."""
-    if args.num_gpus > 1 or args.num_machines > 1 or args.dist_url:
-        raise NotImplementedError("--num-gpus > 1, --num-machines > 1 and --dist-url need data-parallel training "
-                                  "(DDP over NCCL), which is not ported yet: ROADMAP.md queue A item 5")
+    """Run the CLI's task; ``device`` is the GPU unless given.
+
+    One process runs the task here. Several (``--num-gpus``, or the config's
+    layout) run it each in its own process, NCCL on CUDA and gloo when
+    ``device`` is the CPU, and this returns what rank 0's task returned, a
+    training run as its final step; with ``--num-machines`` > 1 each
+    machine's command returns when its processes end. ``--resume_test``
+    loads no model and runs here alone."""
+    import torch
+
+    device_type = "cpu" if device is not None and torch.device(device).type == "cpu" else "cuda"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ and num_processes() == 1:
+        initialize_distributed(device_type=device_type)  # torchrun started this process
+        return run(args, device)
+    cfg = merged_cfg(args)
+    per_machine = processes_per_machine(args, cfg, device_type)
+    if args.resume_test or num_processes() > 1 or (per_machine * args.num_machines == 1 and not args.dist_url):
+        return run(args, device)
+    return launch(_launched, per_machine, args.num_machines, args.machine_rank, args.dist_url or None,
+                  args=(args, device, catalog_entries([*cfg.DATASETS.TRAIN, *cfg.DATASETS.TEST])),
+                  device_type=device_type)
+
+
+def catalog_entries(names):
+    """{name: (records, metadata)} of the datasets among ``names`` that this
+    process registered, for the processes it starts: a spawned process
+    starts with the builtin datasets only."""
+    from openset_rcnn_tpu_torch.data import DatasetCatalog, MetadataCatalog
+
+    known = set(DatasetCatalog.list())
+    return {n: (DatasetCatalog.get(n), dict(MetadataCatalog.get(n))) for n in dict.fromkeys(names) if n in known}
+
+
+def _launched(args, device, datasets):
+    from openset_rcnn_tpu_torch.data import DatasetCatalog, MetadataCatalog, register_builtin_datasets
+    from openset_rcnn_tpu_torch.engine.train_state import TrainState
+
+    register_builtin_datasets()
+    for name, (records, meta) in datasets.items():
+        DatasetCatalog.remove(name)
+        DatasetCatalog.register(name, lambda r=records: r)
+        MetadataCatalog.get(name).update(meta)
+    result = run(args, device)
+    return result.step if isinstance(result, TrainState) else result
+
+
+def run(args, device: Optional[Union[str, "torch.device"]] = None):  # noqa: F821
+    """The CLI's task in this process: re-score (``--resume_test``),
+    evaluate (``--eval-only``) or train; the results or the ``TrainState``."""
     cfg = setup(args)
 
     from openset_rcnn_tpu_torch.data import register_builtin_datasets
@@ -93,7 +169,8 @@ def main(args, device: Optional[Union[str, "torch.device"]] = None):  # noqa: F8
         else:
             ckpt.resume_or_load(state, cfg.MODEL.WEIGHTS, resume=args.resume)
         results = do_test(cfg, state.model.state_dict(), eval_type=args.eval_type, device=device, seed=seed)
-        print(results)
+        if process_index() == 0:
+            print(results)
         return results
 
     return do_train(cfg, resume=args.resume, profile_steps=args.profile_steps, debug_nans=args.debug_nans,
@@ -114,7 +191,7 @@ def get_parser():
         help="evaluation protocol variant; 'proposals' runs the box-proposals AR task on the CF-RPN outputs",
     )
     parser.add_argument("--opendet-benchmark", action="store_true")
-    parser.add_argument("--num-gpus", type=int, default=-1, help="data-parallel GPUs (only 1 until DDP)")
+    parser.add_argument("--num-gpus", type=int, default=-1, help="GPUs of this machine, one process each")
     # interface parity with the reference launcher (train.py:264-270)
     parser.add_argument("--num-machines", type=int, default=1)
     parser.add_argument("--machine-rank", type=int, default=0)

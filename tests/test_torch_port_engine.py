@@ -8,7 +8,8 @@ an Orbax directory raises), ``do_train`` against JAX's
 iterations and learning rates; a resume that restores step, parameters and
 momentum bitwise), and the CLI ``python -m openset_rcnn_tpu_torch.train``
 (``--eval-only``, ``--test_iter``, ``--resume``, ``--resume_test``, and the
-raises until data-parallel training is ported)."""
+launch flags, which start ``parallel.launch``; ``test_torch_port_ddp.py`` runs
+the processes)."""
 import json
 import os
 
@@ -33,6 +34,7 @@ from openset_rcnn_tpu_torch.engine import checkpoint as port_ckpt
 from openset_rcnn_tpu_torch.engine import events as port_events
 from openset_rcnn_tpu_torch.engine import train_loop as port_loop
 from openset_rcnn_tpu_torch.engine.train_state import Trainer
+from openset_rcnn_tpu_torch.parallel.mesh import make_layout
 from tests import test_torch_port_weights as port_weights
 from tests.port_threads import share_cores  # noqa: F401 (autouse)
 from tests.test_e2e import CLASSES, make_cfg
@@ -334,13 +336,19 @@ def test_do_train_resume_restores_step_parameters_and_momentum(trained):
 
 
 def test_do_train_raises_without_one_device(trained):
+    """Outside a process group a layout of several processes raises
+    ``ValueError`` naming the launcher (the name predates data-parallel
+    training; ``tests/test_torch_port_ddp.py`` holds a layout that does not
+    fit its group)."""
     cfg = trained["pcfg"].clone()
     cfg.TPU.MESH_DATA = 2
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(ValueError, match="--num-gpus"):
         port_loop.do_train(cfg, device="cpu")
     cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL = 1, 2
-    with pytest.raises(NotImplementedError, match="DDP"):
+    with pytest.raises(ValueError, match="--num-gpus"):
         port_loop.do_train(cfg, device="cpu")
+    cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL = -1, 1  # all processes: this one
+    assert make_layout(cfg.TPU.MESH_DATA, cfg.TPU.MESH_MODEL).data == 1
 
 
 # ---------------------------------------------------------------- CLI
@@ -391,14 +399,28 @@ def test_cli_trains_and_resumes(trained):
     assert [line["iteration"] for line in metrics(cfg.OUTPUT_DIR)] == [1, 2, 3]
 
 
-@pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["--num-machines", "2"], ["--dist-url", "tcp://localhost:1"],
-                                  ["TPU.MESH_DATA", "2"]])
-def test_cli_raises_until_data_parallel_training(trained, argv):
+@pytest.mark.parametrize("argv, launched", [
+    (["--num-gpus", "2"], (2, 1, 0, None)),
+    (["--num-machines", "2", "--machine-rank", "1", "--dist-url", "tcp://10.0.0.1:29500"],
+     (1, 2, 1, "tcp://10.0.0.1:29500")),
+    (["--dist-url", "tcp://127.0.0.1:29500"], (1, 1, 0, "tcp://127.0.0.1:29500")),
+    (["TPU.MESH_DATA", "2"], (2, 1, 0, None)),
+])
+def test_cli_raises_until_data_parallel_training(trained, monkeypatch, argv, launched):
+    """Each launch flag, and a config of two processes, now starts the
+    processes of ``parallel.launch`` (recorded here, not run;
+    ``tests/test_torch_port_ddp.py`` runs ``--num-gpus 2``). The name
+    predates data-parallel training, when these raised."""
     tmp = trained["tmp"]
     cfg = trained["pcfg"].clone()
     cfg.OUTPUT_DIR = str(tmp / "cli_ddp")
     yaml = tmp / "cli_ddp.yaml"
     yaml.write_text(cfg.dump())
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        run_cli(["--config-file", str(yaml), *argv])
+    calls = []
+    monkeypatch.setattr(cli, "launch", lambda fn, n, machines, rank, url, args, device_type:
+                        calls.append((fn, n, machines, rank, url, args, device_type)))
+    run_cli(["--config-file", str(yaml), *argv])
+    (fn, *layout, args, device_type), = calls
+    assert fn is cli._launched and tuple(layout) == launched and device_type == "cpu"
+    assert args[1] == "cpu" and set(args[2]) == {TRAIN, TEST}  # the caller's datasets travel along
     assert not os.path.exists(os.path.join(cfg.OUTPUT_DIR, "last_checkpoint"))

@@ -133,8 +133,10 @@ def test_remat_raises_until_ported():
         calls = []
         model.backbone.res4_block2.register_forward_pre_hook(lambda *a: calls.append(1))
         anchors, level_sizes = port_det.compute_anchors(spec, (H, W))
+        draws = port_det.sampling_draws(model, spec, len(images), len(anchors), level_sizes, boxes.shape[1],
+                                        torch.Generator().manual_seed(5), "cpu")
         losses, _ = port_det.training_losses_and_stats(model, batch, spec, torch.from_numpy(anchors), level_sizes,
-                                                       generator=torch.Generator().manual_seed(5))
+                                                       draws)
         sum(losses.values()).backward()
         out[remat] = ({k: v.detach() for k, v in losses.items()}, len(calls),
                       {n: p.grad for n, p in model.named_parameters() if p.grad is not None})

@@ -182,8 +182,8 @@ def test_sample_balanced_indices_matches_jax(rng):
 
 def test_samplers_draw_from_a_generator(rng):
     labels = t(rng.randint(-1, 2, (2, 1000)).astype(np.int32))
-    a = port_sampling.subsample_labels(labels, 256, 0.5, generator=torch.Generator().manual_seed(5))
-    b = port_sampling.subsample_labels(labels, 256, 0.5, generator=torch.Generator().manual_seed(5))
+    a, b = (port_sampling.subsample_labels(labels, 256, 0.5, port_sampling.draw_uniforms(
+        (2, 2, 1000), "cpu", torch.Generator().manual_seed(5))) for _ in range(2))
     assert torch.equal(a, b) and ((a == 1).sum(1) == 128).all() and ((a == 0).sum(1) == 128).all()
 
 
