@@ -33,10 +33,14 @@ In order it
   6a. roi_align adaptive (K1's adaptive mode, sampling_ratio -1, the
      *_parity.yaml configs' grid): against its plain version at the serving
      shapes and at B=16, R=512, on boxes that take 1 sample a bin axis and
-     the clip at 8, within atol 2e-5 + rtol 1e-5 (bitwise in practice),
-     timed beside the static grid's K1 on the same boxes;
+     the clip at 8, within atol 2e-5 + rtol 1e-5, timed beside the static
+     grid's K1 on the same boxes; prints the widest axis table and the most
+     bins of one RoI meeting one row or column on these boxes, from the
+     plain model of the kernels' tables (at most 16 and 7 by construction);
   6b. roi_align_bwd adaptive (K2 f32's adaptive mode): as phase 6, on the
-     adaptive grid, timed beside the static grid's K2 f32;
+     adaptive grid, timed beside the static grid's K2 f32; prints the
+     kernel's distance from the f64 sums beside the previous design's
+     (PERF.md's figure, printed only) and the table widths as 6a;
   7. roi_align_window (K5): window-fit levels at the serving shapes, f32 and
      bf16 features, an eighth of the boxes wide and an eighth tall (aspect
      4.5 to 8.5); f32 within atol 2e-5 + rtol 1e-5, bf16 within one bf16
@@ -173,9 +177,10 @@ repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --timings [ROOT]
 
-times only K1 and K4 at the shapes of phases 3 and 4 and K3 and K2 f32 at
-those of phases 5 and 6 (event and device time, no gates; K1 and K4 also
-after a profiler session), with the openset_rcnn_tpu_torch package of ROOT (default:
+times only K1 and K4 at the shapes of phases 3 and 4, K1's adaptive mode at
+phase 6a's serving shapes, and K3 and K2 f32 (static and adaptive) at those
+of phases 5 and 6 (event and device time, no gates; K1 and K4 also after a
+profiler session), with the openset_rcnn_tpu_torch package of ROOT (default:
 this checkout), so that two versions of the kernels are timed by one script
 in one call: run it on a checkout of each.
 
@@ -244,6 +249,11 @@ EVAL_LANDSCAPE, EVAL_PORTRAIT = 28, 16  # records of 800x1200 and of 1200x800
 EVAL_HW = (800, 1200)
 EVAL_TOL = 1e-5                   # fused vs host cascade: boxes and scores, scaled by max(1, max|want|)
 ADAPTIVE = -1                     # TPU.ROI_SAMPLING_RATIO of the adaptive grid
+# the previous design of K2's adaptive mode (one entry per sample; PERF.md
+# §6): its largest distance from the f64 sums on each bwd_cases entry, as
+# --timings prints it for a checkout of that design
+K2_ADAPTIVE_F64_ERR_BEFORE = {"uniform_b4": 4.395049359118275e-06, "uniform_b16": 4.5264909260822606e-06,
+                              "clustered_b4": 2.0521006973694966e-06, "clustered_b16": 3.083213062637924e-06}
 # do_train through the CLI: synthetic records on disk (landscape, portrait,
 # test), the run's iterations and periods
 DO_TRAIN_RECORDS = (32, 16, 8)
@@ -872,10 +882,11 @@ def phase_roi_align_adaptive(torch, dev):
     at the serving shapes and at B=16, R=512, on boxes of sides 8-800 px
     (tiny: 1 sample a bin; elongated: the clip at 8), timed beside the
     static grid's K1 on the same boxes."""
-    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_plain
+    from openset_rcnn_tpu_torch.ops.roi_align import adaptive_table_widths, assign_levels, roi_align, roi_align_plain
 
     H, W = BUCKET
     C = 256
+    level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
     figures = {}
     for label, B, R, seed in (("serve", BATCH, 4 * 1000 + math.ceil(H / 64) * math.ceil(W / 64), 11),
                               ("train_bf16", TRAIN_BATCH_BF16, TRAIN_ROIS, 12)):
@@ -887,6 +898,7 @@ def phase_roi_align_adaptive(torch, dev):
         samples, n = adaptive_samples(torch, boxes, levels)
         check(float(n.min()) == 1.0 and float(n.max()) == 8.0,
               f"roi_align adaptive ({label}): samples per bin axis span {float(n.min())}-{float(n.max())}, not 1-8")
+        widest, most_bins = adaptive_table_widths(boxes, levels, level_hw, STRIDES)
         got = roi_align(feats, boxes, levels, STRIDES, 7, ADAPTIVE)
         want = roi_align_plain(feats, boxes, levels, STRIDES, 7, ADAPTIVE)
         torch.cuda.synchronize()
@@ -905,10 +917,11 @@ def phase_roi_align_adaptive(torch, dev):
         bound_ms, bound_by = bound(bytes_moved, flops)
         hist = torch.bincount(n.flatten().long(), minlength=9)[1:].tolist()
         print(f"roi_align adaptive ({label}): B={B} R={R} C={C}; samples per bin axis 1..8: {hist}, mean samples a "
-              f"bin {float(samples.mean()):.2f} (static grid: 4); kernel vs plain {'bitwise equal' if bitwise else ''}"
-              f" max abs err {max_abs:.3e}; kernel {ms:.4f} ms, static-grid K1 on the same boxes {static_ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bytes_moved / 1e9:.3f} GB, "
-              f"{flops / 1e9:.1f} GFLOP)", flush=True)
+              f"bin {float(samples.mean()):.2f} (static grid: 4); the plain table model's widest axis table {widest} "
+              f"pairs (bound 16), at most {most_bins} bins a row or column (bound 7); kernel vs plain "
+              f"{'bitwise equal' if bitwise else ''} max abs err {max_abs:.3e}; kernel {ms:.4f} ms, static-grid K1 on "
+              f"the same boxes {static_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bytes_moved / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP)", flush=True)
         figures[label] = dict(max_abs_err=max_abs, bitwise=bitwise, ms=ms, static_ms=static_ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, mean_samples=float(samples.mean()))
         del got, feats
@@ -920,8 +933,9 @@ def phase_roi_align_adaptive(torch, dev):
 
 def phase_roi_align_bwd_adaptive(torch, dev):
     """K2 f32 on the adaptive grid on ``bwd_cases``: within tolerance of its
-    plain version and bitwise equal from launch to launch."""
-    from openset_rcnn_tpu_torch.ops.roi_align import roi_align_bwd, roi_align_bwd_plain
+    plain version and bitwise equal from launch to launch; its distance from
+    the f64 sums beside the previous design's."""
+    from openset_rcnn_tpu_torch.ops.roi_align import adaptive_table_widths, roi_align_bwd, roi_align_bwd_plain
 
     P = 7
     H, W = BUCKET
@@ -940,7 +954,11 @@ def phase_roi_align_bwd_adaptive(torch, dev):
         max_abs = max(float((a - w).abs().max()) for a, w in zip(got, want))
         check(max_abs <= BWD_TOL * scale,
               f"roi_align_bwd adaptive kernel vs plain ({label}, B={B}): max abs {max_abs} > {BWD_TOL} * {scale}")
-        del got, again
+        exact = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE, acc_dtype=torch.float64)
+        kernel_exact = max(float((a.double() - e).abs().max()) for a, e in zip(got, exact))
+        plain_exact = max(float((w.double() - e).abs().max()) for w, e in zip(want, exact))
+        widest, most_bins = adaptive_table_widths(boxes, levels, level_hw, STRIDES)
+        del got, again, exact
         ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE), 10)
         static_ms = time_ms(torch, lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, P, 2), 10)
         plain_ms = time_ms(torch, lambda: roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, P, ADAPTIVE), 1)
@@ -948,12 +966,17 @@ def phase_roi_align_bwd_adaptive(torch, dev):
         n_bytes = cot.numel() * 4 + boxes.numel() * 4 + levels.numel() * 4 + acc_bytes
         flops = C * P * P * float((samples * ROI_BWD_FLOPS_PER_SAMPLE + 1).sum())
         bound_ms, bound_by = bound(n_bytes, flops)
+        before = K2_ADAPTIVE_F64_ERR_BEFORE[f"{label}_b{B}"]
         print(f"roi_align_bwd adaptive ({label}): B={B} R={R} C={C}, mean samples a bin "
-              f"{float(samples.mean()):.2f}; max abs err {max_abs:.3e} (limit {BWD_TOL * scale:.3e}); two launches "
-              f"bitwise equal; kernel {ms:.4f} ms, static-grid K2 f32 on the same RoIs {static_ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e9:.3f} GB)", flush=True)
+              f"{float(samples.mean()):.2f}; the plain table model's widest axis table {widest} pairs, at most "
+              f"{most_bins} bins a row or column; max abs err {max_abs:.3e} (limit {BWD_TOL * scale:.3e}; "
+              f"against the f64 sums: kernel {kernel_exact:.3e}, the previous design {before:.3e} (PERF.md's "
+              f"figure, not this run's), plain {plain_exact:.3e}); two launches bitwise equal; kernel {ms:.4f} ms, "
+              f"static-grid K2 f32 on the same RoIs {static_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e9:.3f} GB)", flush=True)
         figures[f"{label}_b{B}"] = dict(max_abs_err=max_abs, ms=ms, static_ms=static_ms, plain_ms=plain_ms,
-                                        bound_ms=bound_ms, bound_by=bound_by, mean_samples=float(samples.mean()))
+                                        bound_ms=bound_ms, bound_by=bound_by, mean_samples=float(samples.mean()),
+                                        kernel_err_f64=kernel_exact, plain_err_f64=plain_exact)
         del want, cot
     main = figures[f"uniform_b{TRAIN_BATCH}"]
     return dict(name="roi_align_bwd_adaptive", route="cuda", source="openset_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
@@ -967,9 +990,11 @@ def timings(torch, dev):
     time (CUDA events) and the device time per call (profiler). K1 and K4 at
     the serving shapes of phases 3 and 4 (K4 per serve batch: N=2000 then
     N=1000), each timed before and after a torch.profiler session, as
-    phase 4 times its second case."""
+    phase 4 times its second case; K1's adaptive mode at phase 6a's serving
+    shapes; K2 f32, static and adaptive, on ``bwd_cases``, the adaptive
+    mode also with its distance from the f64 sums."""
     from openset_rcnn_tpu_torch.ops.nms import nms_keep
-    from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd
+    from openset_rcnn_tpu_torch.ops.roi_align import assign_levels, roi_align, roi_align_bwd, roi_align_bwd_plain
 
     out = {}
     feats, boxes, levels = serve_roi_case(torch, dev)
@@ -981,18 +1006,34 @@ def timings(torch, dev):
         events = device_events(torch, run, 20)
         out[name] = dict(ms=ms, device_ms=sum(t for _, t, _ in events) / 20, ms_after_profiler=time_ms(torch, run, 20))
     del feats, boxes, levels
+    H, W = BUCKET
+    # K1's adaptive mode on phase 6a's serving case
+    g = torch.Generator(device=dev).manual_seed(11)
+    feats = [torch.randn(BATCH, math.ceil(H / s), math.ceil(W / s), 256, generator=g, device=dev).to(torch.bfloat16)
+             for s in STRIDES]
+    boxes = roi_boxes(torch, g, BATCH, 4 * 1000 + math.ceil(H / 64) * math.ceil(W / 64), dev)
+    levels = assign_levels(boxes)
+    run = lambda: roi_align(feats, boxes, levels, STRIDES, 7, ADAPTIVE)
+    events = device_events(torch, run, 20)
+    out["roi_align_fwd_adaptive"] = dict(ms=time_ms(torch, run, 20), device_ms=sum(t for _, t, _ in events) / 20)
+    del feats, boxes, levels
     for B in (TRAIN_BATCH, TRAIN_BATCH_BF16):
         out[f"iou_match_b{B}"] = iou_timings(torch, *iou_case(torch, dev, B))
-    H, W = BUCKET
     level_hw = [(math.ceil(H / s), math.ceil(W / s)) for s in STRIDES]
     for label, B, boxes, levels, cot in bwd_cases(torch, dev):
-        run = lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, 2)
-        events = device_events(torch, run, 20)
-        out[f"roi_align_bwd_{label}_b{B}"] = dict(
-            ms=time_ms(torch, run, 20), device_ms=sum(t for _, t, _ in events) / 20,
-            kernel_device_ms=device_ms(torch, run, 20, ("roi_align_bwd_kernel",))["roi_align_bwd_kernel"],
-            ops_per_call=sum(count for _, _, count in events) / 20)
-        del cot
+        for name, ratio, kernel in (("roi_align_bwd", 2, "roi_align_bwd_kernel"),
+                                    ("roi_align_bwd_adaptive", ADAPTIVE, "roi_align_bwd_adaptive_kernel")):
+            run = lambda: roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, ratio)
+            events = device_events(torch, run, 20)
+            out[f"{name}_{label}_b{B}"] = dict(
+                ms=time_ms(torch, run, 20), device_ms=sum(t for _, t, _ in events) / 20,
+                kernel_device_ms=device_ms(torch, run, 20, (kernel,))[kernel],
+                ops_per_call=sum(count for _, _, count in events) / 20)
+        exact = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, ADAPTIVE, acc_dtype=torch.float64)
+        out[f"roi_align_bwd_adaptive_{label}_b{B}"]["kernel_err_f64"] = max(
+            float((a.double() - e).abs().max())
+            for a, e in zip(roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, ADAPTIVE), exact))
+        del cot, exact
     return out
 
 

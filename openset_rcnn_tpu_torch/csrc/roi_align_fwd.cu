@@ -56,25 +56,45 @@
 //     sample: val = g00*w00 + g01*w01 + g10*w10 + g11*w11, acc += val * ok
 //     over (sy, sx), then acc * (1 / (S*S)); with --fmad=false the result is
 //     bitwise the plain version's.
-//   * The adaptive grid (S == -1, TPU.ROI_SAMPLING_RATIO -1: the gather
-//     path's, openset_rcnn_tpu/ops/roi_align.py:93-94, 124-135, 188-193) is
-//     a third instantiation of the generic loop: per RoI and axis
-//     n = clip(ceil(bin extent), 1, 8) samples a bin at p + (j + 0.5) / n,
-//     on a lattice of 8 a bin (so up to 56 a side); only the n_y x n_x
-//     active samples are visited, and the sum is divided by n_y * n_x (a
-//     true division, as the plain version's), so it too is bitwise the plain
-//     version's. A bin takes 1 to 64 samples where the static grid takes 4;
-//     the bytes, and so the bound, do not change.
+//
+// The adaptive grid (S == -1, TPU.ROI_SAMPLING_RATIO -1; K1 only) has its
+// own kernel, roi_align_fwd_adaptive_kernel, on the per-bin axis tables of
+// csrc/roi_align_adaptive.cuh. A bin takes 1 to 64 samples there (n_y x
+// n_x, n = clip(ceil(bin extent), 1, 8) per axis), and a sample's 4
+// neighbour loads and FMA chain each would wait on the sample's shared
+// geometry in a loop that cannot unroll. Instead:
+//   * The block's threads first build the RoI's 2 x P tables in shared
+//     memory: per axis and bin the distinct (cell, weight) pairs, at most
+//     16 (the header proves the bound), the y-weights divided by the RoI's
+//     n_y * n_x.
+//   * A worker then computes its bin as a separable pass: per y-pair
+//     t = sum over the x-pairs of wx * f[row, cx], 16-byte loads in chunks
+//     of 2 under a compile-time bound of 16 with predication, so a chunk's
+//     loads issue ahead of its arithmetic; then acc += wy * t. A bin costs
+//     k_y * k_x loads and FMA chains (9 at n_y = n_x = 2, whose 4 samples
+//     take 16 neighbour loads one by one), and no geometry is read per
+//     sample.
+//   * P = 7 (every config's POOLER_RESOLUTION) is a compile-time
+//     instantiation; another P runs the same code with a runtime P.
+//   * The 16-byte loads and stores, the masked tail and the channel-group
+//     loop are the static kernel's.
+// The sums are reassociated (merged weights, FMAs, the count folded into the
+// y-weights), so the result is no longer bitwise the plain version's: it is
+// held to atol 2e-5 + rtol 1e-5 of it. The bytes, and so the bound, are the
+// static grid's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "roi_align_adaptive.cuh"
 
 namespace {
 
 constexpr int kLevels = 4;
 constexpr int kMaxSamples = 32;  // out_size * sampling_ratio per axis
-constexpr int kLattice = 8;      // the adaptive grid's samples per bin axis at most
-constexpr int kMaxAdaptive = 56;  // out_size * kLattice per axis
+constexpr int kMaxAdaptiveP = 7;  // the adaptive grid's out_size at most (out_size * kLattice <= 56)
 constexpr int kMaxThreads = 512;
 
 template <typename In>
@@ -171,29 +191,20 @@ __device__ __forceinline__ void add_sample(float* acc, const Raw& g00, const Raw
   }
 }
 
-// the adaptive grid's samples per bin on the axis [lo, hi]: ceil of the bin's
-// extent, clipped to [1, kLattice] (the gather path's n_y, n_x)
-__device__ __forceinline__ int adaptive_count(float lo, float hi, int P) {
-  return (int)fminf(fmaxf(ceilf((hi - lo) / (float)P), 1.0f), (float)kLattice);
-}
-
 // kP, kS > 0: compile-time grid (the config's (7, 2)), the sample loops
-// unrolled; kP == kS == 0: the generic instantiation, runtime (P, S);
-// kAdaptive: the generic loop over the adaptive grid's per-RoI counts on a
-// lattice of S = kLattice.
-template <typename In, typename Out, int kP, int kS, bool kAdaptive = false>
+// unrolled; kP == kS == 0: the generic instantiation, runtime (P, S).
+template <typename In, typename Out, int kP, int kS>
 __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
     Levels<In> lv, const float* __restrict__ boxes, const int* __restrict__ levels, int R, int C,
     int P_rt, int S_rt, int groups, int n_groups, bool vec, Out* __restrict__ out) {
   constexpr int N = Vec<In>::N;
-  constexpr int kAxis = kAdaptive ? kMaxAdaptive : kMaxSamples;
-  __shared__ int s_lo[2][kAxis];  // [axis][sample]: floor neighbour
-  __shared__ int s_hi[2][kAxis];  // min(floor + 1, extent - 1)
-  __shared__ float s_frac[2][kAxis];
-  __shared__ float s_ok[2][kAxis];  // 1 inside (-1, extent), else 0
+  __shared__ int s_lo[2][kMaxSamples];  // [axis][sample]: floor neighbour
+  __shared__ int s_hi[2][kMaxSamples];  // min(floor + 1, extent - 1)
+  __shared__ float s_frac[2][kMaxSamples];
+  __shared__ float s_ok[2][kMaxSamples];  // 1 inside (-1, extent), else 0
 
   const int P = kP > 0 ? kP : P_rt;
-  const int S = kAdaptive ? kLattice : kS > 0 ? kS : S_rt;
+  const int S = kS > 0 ? kS : S_rt;
   const int roi = blockIdx.x;
   const int b = roi / R;
   const int l = levels[roi];
@@ -201,14 +212,6 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
   const int W = lv.w[l];
   const int PS = P * S;
   const int t = threadIdx.x;
-  // samples per bin axis: S, or the RoI's adaptive counts
-  int n_y = S, n_x = S;
-  if (kAdaptive) {
-    const float scale = lv.inv_stride[l];
-    const float* bx = boxes + 4 * (size_t)roi;
-    n_y = adaptive_count(bx[1] * scale - 0.5f, bx[3] * scale - 0.5f, P);
-    n_x = adaptive_count(bx[0] * scale - 0.5f, bx[2] * scale - 0.5f, P);
-  }
 
   for (int i = t; i < 2 * PS; i += blockDim.x) {
     const int axis = i < PS ? 0 : 1;  // 0: y, 1: x
@@ -218,7 +221,7 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
     const float lo = (axis == 0 ? bx[1] : bx[0]) * scale - 0.5f;
     const float hi = (axis == 0 ? bx[3] : bx[2]) * scale - 0.5f;
     const float bin = (hi - lo) / (float)P;
-    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)(axis == 0 ? n_y : n_x);
+    const float in_bins = (float)(idx / S) + ((float)(idx % S) + 0.5f) / (float)S;
     float v = lo + in_bins * bin;
     const float ext = (float)(axis == 0 ? H : W);
     s_ok[axis][idx] = (v > -1.0f && v < ext) ? 1.0f : 0.0f;
@@ -246,12 +249,12 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
 #pragma unroll
     for (int v = 0; v < N; ++v) acc[v] = 0.0f;
 #pragma unroll
-    for (int sy = 0; sy < n_y; ++sy) {
+    for (int sy = 0; sy < S; ++sy) {
       const int iy = py * S + sy;
       const In* r0 = f + (size_t)s_lo[0][iy] * W * C;
       const In* r1 = f + (size_t)s_hi[0][iy] * W * C;
 #pragma unroll
-      for (int sx = 0; sx < n_x; ++sx) {
+      for (int sx = 0; sx < S; ++sx) {
         const int ix = px * S + sx;
         const size_t x0 = (size_t)s_lo[1][ix] * C, x1 = (size_t)s_hi[1][ix] * C;
         add_sample<N>(acc, load_raw(r0 + x0, n, vec), load_raw(r0 + x1, n, vec), load_raw(r1 + x0, n, vec),
@@ -259,15 +262,101 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_kernel(
       }
     }
     float res[N];
-    if (kAdaptive) {
-      const float count = (float)(n_y * n_x);
 #pragma unroll
-      for (int v = 0; v < N; ++v) res[v] = acc[v] / count;
-    } else {
-#pragma unroll
-      for (int v = 0; v < N; ++v) res[v] = acc[v] * inv_count;
-    }
+    for (int v = 0; v < N; ++v) res[v] = acc[v] * inv_count;
     store_vals<N>(o + (size_t)bin * C, res, n, vec);
+  }
+}
+
+// The adaptive grid (K1's S == -1), on the RoI's axis tables; kP == 7 or 0
+// (runtime P <= kMaxAdaptiveP). Threads as in roi_align_fwd_kernel.
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads) roi_align_fwd_adaptive_kernel(
+    Levels<__nv_bfloat16> lv, const float* __restrict__ boxes, const int* __restrict__ levels, int R, int C,
+    int P_rt, int groups, int n_groups, bool vec, float* __restrict__ out) {
+  using In = __nv_bfloat16;
+  using Raw = Vec<In>::Raw;
+  constexpr int N = Vec<In>::N;
+  constexpr int kChunk = 2;  // x-pairs whose loads issue together (4 spill in the 64 registers ptxas picks)
+  // [axis][bin][pair]: y: the row's offset cell * W, x: the column; the
+  // weight (y: divided by n_y * n_x); [axis][bin]: the pairs
+  __shared__ int s_cell[2][kMaxAdaptiveP][kMaxPairs];
+  __shared__ float s_w[2][kMaxAdaptiveP][kMaxPairs];
+  __shared__ int s_k[2][kMaxAdaptiveP];
+
+  const int P = kP > 0 ? kP : P_rt;
+  const int roi = blockIdx.x;
+  const int b = roi / R;
+  const int l = levels[roi];
+  const int H = at_level(lv.h, l);
+  const int W = at_level(lv.w, l);
+  const int t = threadIdx.x;
+
+  for (int i = t; i < 2 * P; i += blockDim.x) {  // one thread per table
+    const int axis = i < P ? 0 : 1;  // 0: y, 1: x
+    const int bin = i - axis * P;
+    const float scale = at_level(lv.inv_stride, l);
+    const float* bx = boxes + 4 * (size_t)roi;
+    const float ylo = bx[1] * scale - 0.5f, yhi = bx[3] * scale - 0.5f;
+    const float xlo = bx[0] * scale - 0.5f, xhi = bx[2] * scale - 0.5f;
+    const int n_y = adaptive_count(ylo, yhi, P), n_x = adaptive_count(xlo, xhi, P);
+    int* cell = s_cell[axis][bin];
+    float* w = s_w[axis][bin];
+    if (axis == 0) {
+      const float count = (float)(n_y * n_x);
+      s_k[0][bin] = axis_table(ylo, yhi, P, n_y, bin, H, [&](int j, int c, float wt) {
+        cell[j] = c * W;
+        w[j] = wt / count;
+      });
+    } else {
+      s_k[1][bin] = axis_table(xlo, xhi, P, n_x, bin, W, [&](int j, int c, float wt) {
+        cell[j] = c;
+        w[j] = wt;
+      });
+    }
+  }
+  __syncthreads();
+
+  const In* const feat = at_level(lv.feat, l);
+  const int workers = blockDim.x / groups;
+  for (int g = t % groups; g < n_groups; g += groups)
+  for (int bin = t / groups; bin < P * P; bin += workers) {
+    const int c = g * N;
+    const int n = min(N, C - c);
+    const In* f = feat + (size_t)b * H * W * C + c;
+    const int py = bin / P, px = bin % P;
+    const int ky = s_k[0][py], kx = s_k[1][px];
+    const int* xc = s_cell[1][px];
+    const float* xw = s_w[1][px];
+    float acc[N];
+#pragma unroll
+    for (int v = 0; v < N; ++v) acc[v] = 0.0f;
+    for (int e = 0; e < ky; ++e) {
+      const In* row = f + (size_t)s_cell[0][py][e] * C;
+      float tx[N];
+#pragma unroll
+      for (int v = 0; v < N; ++v) tx[v] = 0.0f;
+#pragma unroll
+      for (int q0 = 0; q0 < kMaxPairs; q0 += kChunk) {
+        if (q0 >= kx) break;
+        Raw r[kChunk];
+        float wx[kChunk];
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          const bool on = q0 + i < kx;
+          wx[i] = on ? xw[q0 + i] : 0.0f;
+          r[i] = on ? load_raw(row + (size_t)xc[q0 + i] * C, n, vec) : Raw{};
+        }
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i)
+#pragma unroll
+          for (int v = 0; v < N; ++v) tx[v] = fmaf(wx[i], elem(r[i], v), tx[v]);
+      }
+      const float wy = s_w[0][py][e];
+#pragma unroll
+      for (int v = 0; v < N; ++v) acc[v] = fmaf(wy, tx[v], acc[v]);
+    }
+    store_vals<N>(out + ((size_t)roi * P * P + bin) * C + c, acc, n, vec);
   }
 }
 
@@ -275,10 +364,12 @@ template <typename In, typename Out>
 int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h0, int w0, int h1,
            int w1, int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
            const float* boxes, const int* levels, int n_rois, int rois_per_image, int C, int P,
-           int S, bool adaptive_ok, void* out, void* stream) {
+           int S, void* out, void* stream) {
   constexpr int N = Vec<In>::N;
+  // the adaptive grid: K1 (bf16 in, f32 out) only
+  constexpr bool kAdaptiveOk = std::is_same<In, __nv_bfloat16>::value && std::is_same<Out, float>::value;
   const bool adaptive = S == -1;
-  if (adaptive ? !adaptive_ok || P < 1 || P * kLattice > kMaxAdaptive : P < 1 || S < 1 || P * S > kMaxSamples)
+  if (adaptive ? !kAdaptiveOk || P < 1 || P > kMaxAdaptiveP : P < 1 || S < 1 || P * S > kMaxSamples)
     return (int)cudaErrorInvalidValue;
   if (n_rois <= 0 || C < 1) return (int)cudaErrorInvalidValue;
   Levels<In> lv;
@@ -299,10 +390,16 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, int h
   if (workers > P) workers = P;
   const int threads = groups * workers;
   cudaStream_t st = (cudaStream_t)stream;
-  if (adaptive)
-    roi_align_fwd_kernel<In, Out, 0, 0, true><<<n_rois, threads, 0, st>>>(
-        lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
-  else if (fixed)
+  if (adaptive) {
+    if constexpr (kAdaptiveOk) {
+      if (P == 7)
+        roi_align_fwd_adaptive_kernel<7><<<n_rois, threads, 0, st>>>(lv, boxes, levels, rois_per_image, C, P, groups,
+                                                                      n_groups, vec, (float*)out);
+      else
+        roi_align_fwd_adaptive_kernel<0><<<n_rois, threads, 0, st>>>(lv, boxes, levels, rois_per_image, C, P, groups,
+                                                                      n_groups, vec, (float*)out);
+    }
+  } else if (fixed)
     roi_align_fwd_kernel<In, Out, 7, 2><<<n_rois, threads, 0, st>>>(
         lv, boxes, levels, rois_per_image, C, P, S, groups, n_groups, vec, (Out*)out);
   else
@@ -325,8 +422,7 @@ int roi_align_fwd(const void* f0, const void* f1, const void* f2, const void* f3
                   float s2, float s3, const float* boxes, const int* levels, int n_rois,
                   int rois_per_image, int C, int P, int S, float* out, void* stream) {
   return launch<__nv_bfloat16, float>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2,
-                                      s3, boxes, levels, n_rois, rois_per_image, C, P, S, true, out,
-                                      stream);
+                                      s3, boxes, levels, n_rois, rois_per_image, C, P, S, out, stream);
 }
 
 // K5: as roi_align_fwd, but features and output are both f32 (bf16 == 0) or
@@ -339,9 +435,9 @@ int roi_align_window_fwd(const void* f0, const void* f1, const void* f2, const v
   if (bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3,
                                                 s0, s1, s2, s3, boxes, levels, n_rois,
-                                                rois_per_image, C, P, S, false, out, stream);
+                                                rois_per_image, C, P, S, out, stream);
   return launch<float, float>(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2, s3,
-                              boxes, levels, n_rois, rois_per_image, C, P, S, false, out, stream);
+                              boxes, levels, n_rois, rois_per_image, C, P, S, out, stream);
 }
 
 }  // extern "C"

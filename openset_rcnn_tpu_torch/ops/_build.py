@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
 for ``sm_90a`` (Hopper) into its own shared library under ``_build/`` on
 first use and loaded with ``ctypes``; nothing includes PyTorch's headers, so
-a build takes seconds. The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and never served stale.
+a build takes seconds. The library's file name carries a hash of its source,
+of every header it includes from ``csrc/`` (``#include "<header>"``, and
+theirs in turn) and of the flags, so an edited source or header is rebuilt
+and never served stale.
 
 There is no fast math: ``--fmad=false`` keeps every multiply and add rounded
 on its own, as the plain PyTorch versions compute them, so the NMS keep
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,10 +44,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> Tuple[Path, ...]:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes, directly
+    or through another header, each once."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes()) if (CSRC / inc.decode()).is_file()]
+    return tuple(found)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Tuple[float, Dict[str, str]]:

@@ -47,7 +47,14 @@ RoI is pooled with exact bilinear RoIAlign from the FPN level it is given.
   in the count). The plain versions cut each chunk's lattice to its largest
   count: the lattice points beyond it are masked for every RoI of the
   chunk, and each sum still adds the active samples in their order. K1 and
-  K2's f32 mode take it; K2's bf16 mode and K5 do not.
+  K2's f32 mode take it; K2's bf16 mode and K5 do not. Their kernels
+  compute it from per-bin axis tables (``csrc/roi_align_adaptive.cuh``):
+  per RoI, axis and bin the distinct (cell, weight) pairs, at most 16, so a
+  bin's value is ``sum wy(r) wx(c) f[r, c] / (n_y n_x)``. That reassociates
+  the sums, so the kernels are held to the plain versions by tolerance, not
+  bitwise. ``adaptive_axis_tables`` and ``roi_align_from_tables`` /
+  ``roi_align_bwd_from_tables`` are a plain model of that formulation for
+  the tests and chip_smoke's table widths; no entry point calls them.
 
 Layout: features are per-level NHWC (B, H_l, W_l, C); boxes (B, R, 4) xyxy
 f32 in image coordinates; the output is (B, R, P, P, C), the JAX package's
@@ -203,26 +210,10 @@ def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int
     (n, P Ly, P Lx), the (n,) f32 samples a bin averages, the lattice's
     (Ly, Lx) samples a bin axis).
     Flat rows index one (B * sum_l H_l W_l) buffer, image-major, then level."""
-    B, R = boxes.shape[:2]
-    dev = boxes.device
-    sizes = [h * w for h, w in level_hw]
-    per_image = sum(sizes)
-    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
-    hs = torch.tensor([h for h, _ in level_hw], dtype=torch.float32, device=dev)
-    ws = torch.tensor([w for _, w in level_hw], dtype=torch.float32, device=dev)
-    inv_strides = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
-    flat_boxes = boxes.reshape(-1, 4)
-    flat_levels = levels.reshape(-1).long()
-    image = torch.arange(B, device=dev).repeat_interleave(R)
-    for start in range(0, B * R, chunk):
-        sl = slice(start, min(start + chunk, B * R))
-        bx = flat_boxes[sl]
-        lvl = flat_levels[sl]
-        scale = inv_strides[lvl]
-        H, W = hs[lvl], ws[lvl]
+    for sl, bx, origin, scale, H, W in _roi_chunks(boxes, levels, level_hw, strides, chunk):
         y0, y1, ly, oky, ny, Ly = _sample_axis(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P, S)
         x0, x1, lx, okx, nx, Lx = _sample_axis(bx[:, 0] * scale - 0.5, bx[:, 2] * scale - 0.5, W, P, S)
-        base = (image[sl] * per_image + offsets[lvl])[:, None, None]
+        base = origin[:, None, None]
         Wl = W.long()[:, None, None]
 
         def idx(yy, xx):
@@ -235,6 +226,25 @@ def _chunk_geometry(boxes, levels, level_hw, strides, P: int, S: int, chunk: int
             (idx(y1, x1), ly[:, :, None] * lx[:, None, :]),
         )
         yield sl, bx.shape[0], neighbours, oky[:, :, None] * okx[:, None, :], ny * nx, (Ly, Lx)
+
+
+def _roi_chunks(boxes, levels, level_hw, strides, chunk: int):
+    """Per chunk of the flattened RoIs: (slice, boxes (n, 4), flat row of
+    each RoI's map origin in one (B * sum_l H_l W_l) buffer, image-major,
+    then level (n,), 1 / stride (n,), the map's H and W (n,) f32)."""
+    B, R = boxes.shape[:2]
+    dev = boxes.device
+    sizes = [h * w for h, w in level_hw]
+    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
+    hs = torch.tensor([h for h, _ in level_hw], dtype=torch.float32, device=dev)
+    ws = torch.tensor([w for _, w in level_hw], dtype=torch.float32, device=dev)
+    inv_strides = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
+    flat_boxes, flat_levels = boxes.reshape(-1, 4), levels.reshape(-1).long()
+    image = torch.arange(B, device=dev).repeat_interleave(R)
+    for start in range(0, B * R, chunk):
+        sl = slice(start, min(start + chunk, B * R))
+        lvl = flat_levels[sl]
+        yield sl, flat_boxes[sl], image[sl] * sum(sizes) + offsets[lvl], inv_strides[lvl], hs[lvl], ws[lvl]
 
 
 # both entry points of csrc/roi_align_fwd.cu: one library, one signature table
@@ -403,6 +413,109 @@ def roi_align_window(
 roi_align_window.launches = 0  # kernel launches since the last reset
 
 
+# ------------------------------------------- the adaptive grid's axis tables
+
+
+def adaptive_axis_tables(lo, hi, extent, P: int = 7):
+    """The adaptive grid's per-bin tables of one axis, for a chunk of RoIs
+    (the kernels' formulation, ``csrc/roi_align_adaptive.cuh::axis_table``).
+
+    lo/hi/extent: (n,) f32 as ``_sample_axis`` takes them. Returns cells
+    (n, P, 2L) int64 and weights (n, P, 2L) f32, each bin's distinct cells
+    in ascending order with the summed ``ok * (1 - frac)`` / ``ok * frac``
+    of its samples, padded with cell 0 and weight 0; pairs (n, P) int64,
+    the pairs of each bin (pairs of weight 0 left out); and the (n,) f32
+    samples a bin takes. L is the chunk's lattice (its largest count), so
+    2L <= 16."""
+    v0, v1, frac, ok, count, L = _sample_axis(lo, hi, extent, P, ADAPTIVE)
+    n = lo.shape[0]
+    cells = torch.stack([v0, v1], -1).reshape(n, P, 2 * L)  # sample order: lower neighbour, then upper
+    w = torch.stack([(1 - frac) * ok, frac * ok], -1).reshape(n, P, 2 * L)
+    keep = w != 0
+    key = torch.where(keep, cells, torch.iinfo(torch.int64).max)  # weight-0 entries sort last
+    key, order = torch.sort(key, dim=-1, stable=True)  # stable: equal cells keep their sample order
+    w, keep = w.gather(-1, order), keep.gather(-1, order)
+    first = torch.ones_like(keep)
+    first[..., 1:] = key[..., 1:] != key[..., :-1]
+    slot = first.cumsum(-1) - 1
+    pairs = (first & keep).sum(-1)
+    out_cells = torch.zeros_like(cells).scatter_(-1, slot, torch.where(keep, key, 0))
+    out_w = torch.zeros_like(w).scatter_add_(-1, slot, w * keep)
+    return out_cells, out_w, pairs, count
+
+
+def _table_chunks(boxes, levels, level_hw, strides, P: int, chunk: int):
+    """Per chunk of RoIs: (slice of the flattened RoIs, flat row of each
+    RoI's map origin (n,) as ``_roi_chunks``, map width (n,) int64, y-tables,
+    x-tables), the tables as ``adaptive_axis_tables`` returns them."""
+    for sl, bx, origin, scale, H, W in _roi_chunks(boxes, levels, level_hw, strides, chunk):
+        ys = adaptive_axis_tables(bx[:, 1] * scale - 0.5, bx[:, 3] * scale - 0.5, H, P)
+        xs = adaptive_axis_tables(bx[:, 0] * scale - 0.5, bx[:, 2] * scale - 0.5, W, P)
+        yield sl, origin, W.long(), ys, xs
+
+
+def _table_weights(ys, xs, dtype):
+    """(flat cell offsets (n, P, Ky, P, Kx) from the map origin, their
+    weights wy / (n_y n_x) * wx) of a chunk's tables, cut to the chunk's
+    widest tables."""
+    (cy, wy, ky, ny), (cx, wx, kx, nx) = ys, xs
+    Ky, Kx = max(int(ky.max()), 1), max(int(kx.max()), 1)
+    wy = wy[..., :Ky].to(dtype) / (ny * nx).to(dtype)[:, None, None]  # the count enters once, with the y-weights
+    return cy[..., :Ky], cx[..., :Kx], wy, wx[..., :Kx].to(dtype)
+
+
+def roi_align_from_tables(feats, boxes, levels, strides, out_size: int = 7, chunk: int = PLAIN_CHUNK // 16):
+    """The adaptive grid's forward computed from its axis tables (the
+    kernels' formulation; a model for the tests): per bin
+    ``sum_e wy_e / (n_y n_x) * sum_q wx_q f[cy_e, cx_q]``, in f32."""
+    B, R = boxes.shape[:2]
+    C, P = feats[0].shape[-1], out_size
+    flat = torch.cat([f.reshape(B, -1, C) for f in feats], dim=1).reshape(-1, C).float()
+    out = torch.empty((B * R, P, P, C), dtype=torch.float32, device=boxes.device)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    for sl, base, Wl, ys, xs in _table_chunks(boxes, levels, level_hw, strides, P, chunk):
+        cy, cx, wy, wx = _table_weights(ys, xs, torch.float32)
+        rows = base[:, None, None] + cy * Wl[:, None, None]  # (n, P, Ky)
+        idx = rows[:, :, :, None, None] + cx[:, None, None, :, :]  # (n, P, Ky, P, Kx)
+        t = (flat[idx] * wx[:, None, None, :, :, None]).sum(-2)  # the x-pass: (n, P, Ky, P, C)
+        out[sl] = (t * wy[..., None, None]).sum(2)  # then the y-pass
+    return out.reshape(B, R, P, P, C)
+
+
+def roi_align_bwd_from_tables(grad, boxes, levels, level_hw, strides, out_size: int = 7,
+                              chunk: int = PLAIN_CHUNK // 16, acc_dtype: torch.dtype = torch.float32):
+    """The adaptive grid's backward computed from its axis tables (the
+    kernels' formulation; a model for the tests): each (RoI, bin) adds
+    ``cot * wy_e / (n_y n_x) * wx_q`` to cell (cy_e, cx_q), in ``acc_dtype``."""
+    B, R = boxes.shape[:2]
+    C, P = grad.shape[-1], out_size
+    flat = torch.zeros((B * sum(h * w for h, w in level_hw), C), dtype=acc_dtype, device=grad.device)
+    g = grad.reshape(B * R, P, P, C).to(acc_dtype)
+    for sl, base, Wl, ys, xs in _table_chunks(boxes, levels, level_hw, strides, P, chunk):
+        cy, cx, wy, wx = _table_weights(ys, xs, acc_dtype)
+        idx = (base[:, None, None] + cy * Wl[:, None, None])[:, :, :, None, None] + cx[:, None, None, :, :]
+        w = wy[:, :, :, None, None] * wx[:, None, None, :, :]  # (n, P, Ky, P, Kx)
+        flat.index_add_(0, idx.reshape(-1), (g[sl][:, :, None, :, None, :] * w[..., None]).reshape(-1, C))
+    return _split_levels(flat, B, level_hw)
+
+
+def adaptive_table_widths(boxes, levels, level_hw, strides, out_size: int = 7) -> Tuple[int, int]:
+    """(the most pairs of any axis table, the most bins of one RoI that meet
+    one row or column of its map) over these RoIs: at most 16 and
+    ``out_size``, as ``csrc/roi_align_adaptive.cuh`` proves."""
+    widest, most_bins = 0, 0
+    for _, _, _, ys, xs in _table_chunks(boxes, levels, level_hw, strides, out_size, PLAIN_CHUNK):
+        for cells, _, pairs, _ in (ys, xs):
+            widest = max(widest, int(pairs.max()))
+            on = torch.arange(cells.shape[-1], device=cells.device) < pairs[..., None]  # (n, P, 2L)
+            # bins of a RoI through each cell: a cell is once in a bin's table
+            span = int(cells.max()) + 1
+            per_cell = torch.zeros((cells.shape[0], span), dtype=torch.int64, device=cells.device)
+            per_cell.scatter_add_(1, cells.reshape(cells.shape[0], -1), on.reshape(cells.shape[0], -1).long())
+            most_bins = max(most_bins, int(per_cell.max()))
+    return widest, most_bins
+
+
 # ---------------------------------------------------------------- backward
 
 
@@ -546,10 +659,11 @@ def roi_align_bwd(
 ) -> List[torch.Tensor]:
     """RoIAlignV2 backward (K2, f32 accumulators): per-level
     (B, H_l, W_l, C) f32 accumulators from the (B, R, P, P, C) f32 cotangent,
-    each RoI's f32 window gradient added once, a cell's RoIs in index order
-    (so the kernel's result is deterministic). ``out_size * sampling_ratio``
-    at most 32, or the adaptive grid (``ADAPTIVE``) with ``out_size * 8`` at
-    most 56.
+    a cell's RoIs in index order (so the kernel's result is deterministic):
+    on the static grid each RoI's f32 window gradient added once, on the
+    adaptive grid once per y-bin of the RoI that meets the cell.
+    ``out_size * sampling_ratio`` at most 32, or the adaptive grid
+    (``ADAPTIVE``) with ``out_size * 8`` at most 56.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``roi_align_bwd.launches`` counts the static grid's launches,

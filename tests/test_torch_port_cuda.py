@@ -139,9 +139,10 @@ def adaptive_counts(boxes, levels):
 
 @pytest.mark.parametrize("C", [256, 100])  # 100: a masked tail of the 8-channel vectors
 def test_roi_align_kernel_adaptive_matches_plain(dev, C):
-    """The adaptive grid (sampling_ratio -1): K1's third instantiation,
-    bitwise the plain version's arithmetic (held here at atol 2e-5 + rtol
-    1e-5), counted apart from the static grid's launches."""
+    """The adaptive grid (sampling_ratio -1): K1's own kernel on the per-bin
+    axis tables, which reassociates the plain version's sums (so it is held
+    at atol 2e-5 + rtol 1e-5, not bitwise), counted apart from the static
+    grid's launches."""
     feats, _ = roi_inputs(dev, 2, 8, C, seed=C)
     boxes = adaptive_boxes(dev, 2, 300, seed=C)
     levels = assign_levels(boxes)
@@ -187,6 +188,34 @@ def test_roi_align_bwd_kernel_adaptive_is_deterministic(dev, B, kind):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert_bwd_close(first, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, -1))
+
+
+@pytest.mark.parametrize("C", [256, 100])
+def test_roi_align_kernels_adaptive_on_the_widest_tables(dev, C):
+    """Long, thin boxes on P2 (1344 x 4 px: 48 cells a bin, samples 6 cells
+    apart) fill the axis tables to their bound of 16 pairs; boxes wholly
+    or partly below -1 leave them empty or short. K1 and K2 f32 on the
+    adaptive grid against their plain versions there."""
+    from openset_rcnn_tpu_torch.ops.roi_align import adaptive_table_widths
+
+    hw = (128, 1344)
+    feats, _ = roi_inputs(dev, 2, 8, C, hw=hw, seed=C)
+    g = torch.Generator(device=dev).manual_seed(C)
+    y0 = torch.rand(2, 24, generator=g, device=dev) * (hw[0] - 4)
+    x0 = torch.rand(2, 24, generator=g, device=dev) * 4 - 2
+    boxes = torch.stack([x0, y0, x0 + hw[1], y0 + 4], -1)
+    boxes[:, :4] = torch.tensor([[-60.0, -50.0, -10.0, -8.0], [-300.0, 10.0, -20.0, 50.0],
+                                 [30.0, -90.0, 90.0, -12.0], [-80.0, -80.0, 2.0, 3.0]], device=dev)
+    boxes = boxes.contiguous()
+    levels = assign_levels(boxes)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    assert adaptive_table_widths(boxes, levels, level_hw, STRIDES)[0] == 16
+    got = roi_align(feats, boxes, levels, STRIDES, 7, -1)
+    cot = torch.randn(2, 24, 7, 7, C, generator=g, device=dev)
+    grads = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, roi_align_plain(feats, boxes, levels, STRIDES, 7, -1), atol=2e-5, rtol=1e-5)
+    assert_bwd_close(grads, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, -1))
 
 
 def test_adaptive_grid_only_in_k1_and_k2_f32(dev):
