@@ -1,0 +1,1 @@
+"""Frozen reference copy; see ``perfbench/reference/__init__.py``."""
