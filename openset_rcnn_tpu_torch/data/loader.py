@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..structures import GroundTruth, ImageBatch
+from ..utils import tracing
 from .transforms import DetectionTransform, TransformedExample
 
 
@@ -47,17 +48,18 @@ class BatchMeta:
 
 def collate(examples: List[TransformedExample], n_real: Optional[int] = None) -> Tuple[ImageBatch, BatchMeta]:
     """Host tensors: (B, H, W, 3) uint8 images, (B, 2) float32 sizes, padded GT."""
-    gt = GroundTruth(
-        boxes=torch.from_numpy(np.stack([e.boxes for e in examples])),
-        classes=torch.from_numpy(np.stack([e.classes for e in examples])),
-        valid=torch.from_numpy(np.stack([e.gt_valid for e in examples])),
-    )
-    batch = ImageBatch(
-        images=torch.from_numpy(np.stack([e.image for e in examples])),
-        image_hw=torch.tensor([e.image_hw for e in examples], dtype=torch.float32),
-        gt=gt,
-    )
-    return batch, BatchMeta(examples, n_real)
+    with tracing.span("data.collate"):
+        gt = GroundTruth(
+            boxes=torch.from_numpy(np.stack([e.boxes for e in examples])),
+            classes=torch.from_numpy(np.stack([e.classes for e in examples])),
+            valid=torch.from_numpy(np.stack([e.gt_valid for e in examples])),
+        )
+        batch = ImageBatch(
+            images=torch.from_numpy(np.stack([e.image for e in examples])),
+            image_hw=torch.tensor([e.image_hw for e in examples], dtype=torch.float32),
+            gt=gt,
+        )
+        return batch, BatchMeta(examples, n_real)
 
 
 def _filter_empty(records: List[dict]) -> List[dict]:
@@ -187,8 +189,8 @@ class TrainLoader:
                     return
                 out_q.put((seq, ex))
 
-        for _ in range(self.num_workers):
-            threading.Thread(target=worker, daemon=True).start()
+        for k in range(self.num_workers):
+            threading.Thread(target=worker, daemon=True, name=f"TrainLoader-{k}").start()
 
         # reorder buffer: release examples strictly in sequence order
         def ordered_stream():
@@ -282,22 +284,26 @@ def device_prefetch(iterator, device: Union[str, torch.device], depth: int = 2):
             if cuda:
                 torch.cuda.set_device(device)
                 stream = torch.cuda.Stream(device)
-            for batch, meta in iterator:
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        placed = _map(batch, lambda t: t.pin_memory().to(device, non_blocking=True))
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
-                    q.put((placed, meta, ready))
-                else:
-                    q.put((_map(batch, lambda t: t.to(device)), meta, None))
+            for n, (batch, meta) in enumerate(iterator):
+                with tracing.span("data.h2d", batch=n):
+                    if cuda:
+                        with torch.cuda.stream(stream):
+                            placed = _map(batch, lambda t: t.pin_memory().to(device, non_blocking=True))
+                            ready = torch.cuda.Event()
+                            ready.record(stream)
+                        item = (placed, meta, ready)
+                    else:
+                        item = (_map(batch, lambda t: t.to(device)), meta, None)
+                q.put(item)
         except Exception as e:  # handed to the consumer
             q.put(e)
         q.put(end)
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
+    threading.Thread(target=worker, daemon=True, name="device_prefetch").start()
+    for n in itertools.count():
+        tracing.request(n)
+        with tracing.span("data.wait"):
+            item = q.get()
         if item is end:
             return
         if isinstance(item, Exception):

@@ -21,6 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import tracing
+
 
 @dataclass
 class TransformedExample:
@@ -114,9 +116,17 @@ class DetectionTransform:
         return cv2.imread(record["file_name"], cv2.IMREAD_COLOR)
 
     def __call__(self, record: dict, rng: np.random.RandomState) -> Optional[TransformedExample]:
-        img = self.read_image(record)
+        tracing.request(record.get("image_id"))
+        with tracing.span("data.read"):
+            img = self.read_image(record)
         if img is None:
             return None
+        with tracing.span("data.transform"):
+            ex = self._transform(record, img, rng)
+        tracing.count("data.images")
+        return ex
+
+    def _transform(self, record: dict, img: np.ndarray, rng: np.random.RandomState) -> TransformedExample:
         if self.fmt == "RGB":
             img = img[:, :, ::-1]
         oh, ow = img.shape[:2]

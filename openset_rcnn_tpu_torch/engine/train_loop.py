@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..data import DatasetCatalog, DetectionTransform, EvalLoader, MetadataCatalog, TrainLoader
+from ..utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -237,7 +238,10 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
 
     Args:
         profile_steps: if > 0, a ``torch.profiler`` trace of that many steps
-            (after 5 warm-up steps) into ``OUTPUT_DIR/profile``.
+            (after 5 warm-up steps) into ``OUTPUT_DIR/profile``, with the
+            program's spans of those steps (``utils/tracing.py``: the loader
+            threads, ``train.step`` and its stages) on the same timeline, and
+            the device's idle seconds by span in the log.
         debug_nans: run under ``torch.autograd.detect_anomaly``, which names
             the op whose backward produced a NaN (much slower; debug only).
         device: the GPU unless given (``"cpu"`` runs the plain versions of
@@ -342,12 +346,15 @@ def _start_profiler(device: torch.device):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     prof = profile(activities=activities)
     prof.__enter__()
+    tracing.enable()
     return prof
 
 
 def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    snap = tracing.snapshot()
+    tracing.disable()
     prof.__exit__(None, None, None)
     from ..parallel import process_index
 
@@ -355,4 +362,9 @@ def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
     rank = process_index()
     path = os.path.join(profile_dir, "trace.json" if rank == 0 else f"trace_rank{rank}.json")
     prof.export_chrome_trace(path)
-    logger.info("profiler trace written to %s", path)
+    tracing.add_to_chrome_trace(path, snap)
+    logger.info("profiler trace written to %s (program spans: %d)", path, len(snap["spans"]))
+    gaps = tracing.device_gaps(prof)
+    if gaps:
+        logger.info("device idle seconds by program span: %s",
+                    {k: round(v, 6) for k, v in tracing.idle_by_span(gaps, snap).items()})

@@ -32,6 +32,7 @@ from ..models.detector import (Mark, ModelSpec, OpensetRCNN, build_model, comput
 from ..ops.losses import LOCAL, LocalSum
 from ..parallel.mesh import SINGLE, Layout, param_sharding
 from ..structures import GroundTruth, ImageBatch
+from ..utils import tracing
 from .optimizer import build_optimizer, clip_gradients
 
 
@@ -95,16 +96,14 @@ def make_train_step(
         losses, stats = step_losses(batch, anchors, level_sizes, uniforms, mark)
         total = sum(losses.values())
         (total * n if n > 1 else total).backward()
-        if mark:
-            mark("backward")
+        tracing.stage("backward", mark)
         if clip is not None:
             clip_gradients(trainable, *clip, sharded=sharded, model_sum=layout.model_sum)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        if mark:
-            mark("optimizer")
+        tracing.stage("optimizer", mark)
         values = [v.detach() for v in losses.values()] + [total.detach()]
         if n > 1:
             values = list(data_sum(torch.stack(values)))
@@ -201,15 +200,16 @@ class Trainer:
         the global batch's. ``uniforms`` replaces the step's draws
         (``sampling_draws``; all of them, for this rank's images)."""
         dev = self.device
-        batch = ImageBatch(
-            images=batch.images.to(dev),
-            image_hw=batch.image_hw.to(dev, torch.float32),
-            gt=GroundTruth(batch.gt.boxes.to(dev, torch.float32), batch.gt.classes.to(dev),
-                           batch.gt.valid.to(dev)),
-        )
-        anchors, level_sizes = self.anchors(tuple(batch.images.shape[1:3]))
-        if uniforms is None:
-            uniforms = self.sampling_draws(batch, anchors.shape[0], level_sizes,
-                                           step_generator(self.seed, self.state.step, dev))
-        with entry_numerics(deterministic=True):
-            return self._train_step(self.state, batch, anchors, level_sizes, uniforms, mark)
+        with tracing.span("train.step"):
+            batch = ImageBatch(
+                images=batch.images.to(dev),
+                image_hw=batch.image_hw.to(dev, torch.float32),
+                gt=GroundTruth(batch.gt.boxes.to(dev, torch.float32), batch.gt.classes.to(dev),
+                               batch.gt.valid.to(dev)),
+            )
+            anchors, level_sizes = self.anchors(tuple(batch.images.shape[1:3]))
+            if uniforms is None:
+                uniforms = self.sampling_draws(batch, anchors.shape[0], level_sizes,
+                                               step_generator(self.seed, self.state.step, dev))
+            with entry_numerics(deterministic=True):
+                return self._train_step(self.state, batch, anchors, level_sizes, uniforms, mark)

@@ -25,6 +25,7 @@ from ..models.serving import ServeDetections, fused_cascade
 from ..ops.box_transforms import Box2BoxTransformLinear
 from ..ops.nms import KeepFn, nms_keep
 from ..structures import Proposals, RawDetections
+from ..utils import tracing
 from .postprocess import PostprocessConfig
 
 
@@ -112,7 +113,8 @@ class Predictor(_OnDevice):
         """Padded open-set detections (network-input coordinates) for a batch.
         ``mark`` is called after each stage, "cascade" last (see
         ``inference_forward``)."""
-        out = self.cascade(self.raw(images, image_hw, mark))
+        with tracing.span("predict"):
+            out = self.cascade(self.raw(images, image_hw, mark))
         if mark:
             mark("cascade")
         return out

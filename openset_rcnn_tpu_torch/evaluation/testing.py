@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..data.loader import device_prefetch
+from ..utils import tracing
 from .postprocess import finalize_serve_image, postprocess_image
 
 logger = logging.getLogger(__name__)
@@ -34,11 +35,15 @@ class HostCopy(NamedTuple):
     fields: Dict[str, torch.Tensor]
     ready: Optional[torch.cuda.Event]
 
-    def numpy(self) -> Dict[str, np.ndarray]:
-        """The copies as numpy arrays, once they have landed."""
-        if self.ready is not None:
-            self.ready.synchronize()
-        return {k: v.numpy() for k, v in self.fields.items()}
+    def numpy(self, wait: Optional[tracing.Span] = None) -> Dict[str, np.ndarray]:
+        """The copies as numpy arrays, once they have landed. ``wait`` is
+        the span around the wait, for a caller that keeps its time
+        (``tracing.clock("eval.wait")``); ``tracing.span("eval.wait")``
+        when None."""
+        with tracing.span("eval.wait") if wait is None else wait:
+            if self.ready is not None:
+                self.ready.synchronize()
+            return {k: v.numpy() for k, v in self.fields.items()}
 
 
 def to_host(out, names) -> HostCopy:
@@ -108,7 +113,9 @@ def inference_on_dataset(predictor, loader, evaluator, fused: bool = True,
     launches, so the host waits for batch i only. ``timings``, when given,
     receives per batch the host ms spent waiting for the copies
     (``wait_ms``) and in the cascade or finalize plus the evaluator
-    (``consume_ms``), and the loop's ``seconds`` and ``images``.
+    (``consume_ms``), and the loop's ``seconds`` and ``images``: the
+    lengths of its ``eval.wait`` and ``eval.consume`` spans, from their
+    own clock reads (``utils/tracing.py``).
     """
     post_cfg = predictor.post_cfg
     evaluator.reset()
@@ -119,42 +126,43 @@ def inference_on_dataset(predictor, loader, evaluator, fused: bool = True,
         timings.update(wait_ms=[], consume_ms=[])
     t0 = time.perf_counter()
 
-    def consume(host, meta):
+    def consume(host, meta, index):
         nonlocal n_images, n_overflow_images, max_overflow
-        t = time.perf_counter()
-        out = host.numpy()
-        t_ready = time.perf_counter()
-        if fused:
-            # the loader pads the final partial batch by repeating its last
-            # example and truncates meta.image_ids to the real count — only
-            # count overflow on slots that are actually evaluated
-            ov = out["known_overflow"][: len(meta.image_ids)]
-            if (ov > 0).any():
-                n_overflow_images += int((ov > 0).sum())
-                max_overflow = max(max_overflow, int(ov.max()))
-        for i, image_id in enumerate(meta.image_ids):
+        tracing.request(index)
+        wait = tracing.clock("eval.wait")
+        out = host.numpy(wait)
+        with tracing.clock("eval.consume", image_ids=meta.image_ids) as span:
             if fused:
-                dets = finalize_serve_image(out["boxes"][i], out["scores"][i], out["classes"][i], out["valid"][i],
-                                            meta.input_hw[i], meta.original_hw[i], post_cfg)
-            else:
-                dets = postprocess_image(out["boxes"][i], out["objectness"][i], out["min_dist"][i],
-                                         out["pln_class"][i], out["known_probs"][i], out["valid"][i],
-                                         meta.input_hw[i], meta.original_hw[i], post_cfg)
-            evaluator.process(image_id, dets.boxes, dets.scores, dets.classes)
-            n_images += 1
+                # the loader pads the final partial batch by repeating its last
+                # example and truncates meta.image_ids to the real count — only
+                # count overflow on slots that are actually evaluated
+                ov = out["known_overflow"][: len(meta.image_ids)]
+                if (ov > 0).any():
+                    n_overflow_images += int((ov > 0).sum())
+                    max_overflow = max(max_overflow, int(ov.max()))
+            for i, image_id in enumerate(meta.image_ids):
+                if fused:
+                    dets = finalize_serve_image(out["boxes"][i], out["scores"][i], out["classes"][i], out["valid"][i],
+                                                meta.input_hw[i], meta.original_hw[i], post_cfg)
+                else:
+                    dets = postprocess_image(out["boxes"][i], out["objectness"][i], out["min_dist"][i],
+                                             out["pln_class"][i], out["known_probs"][i], out["valid"][i],
+                                             meta.input_hw[i], meta.original_hw[i], post_cfg)
+                evaluator.process(image_id, dets.boxes, dets.scores, dets.classes)
+                n_images += 1
         if timings is not None:
-            timings["wait_ms"].append((t_ready - t) * 1e3)
-            timings["consume_ms"].append((time.perf_counter() - t_ready) * 1e3)
+            timings["wait_ms"].append(wait.ms)
+            timings["consume_ms"].append(span.ms)
 
     pending = None
-    for batch, meta in device_prefetch(loader, predictor.device):
+    for index, (batch, meta) in enumerate(device_prefetch(loader, predictor.device)):
         if fused:
             host = to_host(predictor(batch.images, batch.image_hw), SERVE_FIELDS)
         else:
             host = to_host(predictor.raw(batch.images, batch.image_hw), RAW_FIELDS)
         if pending is not None:
             consume(*pending)
-        pending = (host, meta)
+        pending = (host, meta, index)
     if pending is not None:
         consume(*pending)
     dt = time.perf_counter() - t0
@@ -173,4 +181,5 @@ def inference_on_dataset(predictor, loader, evaluator, fused: bool = True,
             "for exact parity",
             n_overflow_images, n_images, max_overflow,
         )
-    return evaluator.evaluate()
+    with tracing.span("eval.evaluate"):
+        return evaluator.evaluate()

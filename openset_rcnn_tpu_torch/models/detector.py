@@ -27,6 +27,7 @@ from ..ops.losses import LOCAL, LocalSum
 from ..ops.roi_align import ADAPTIVE
 from ..ops.sampling import draw_uniforms
 from ..structures import ImageBatch, RawDetections
+from ..utils import tracing
 from .fpn import FPN
 from .resnet import ResNet
 from .roi_heads import (
@@ -433,8 +434,7 @@ def training_losses_and_stats(
     linear_tf = Box2BoxTransformLinear(normalize_by_size=True)
     keep = uniforms["drop_path"] if any(r > 0 for r in model.branch_rates) else None
     fpn_feats = model.features(batch.images, batch.image_hw, drop_path=keep)
-    if mark:
-        mark("backbone")
+    tracing.stage("backbone", mark)
     pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)
     gt = batch.gt
 
@@ -456,8 +456,7 @@ def training_losses_and_stats(
         ctr_smooth_l1_beta=spec.rpn_ctr_smooth_l1_beta,
         global_sum=global_sum,
     )
-    if mark:
-        mark("rpn")
+    tracing.stage("rpn", mark)
     proposals = select_proposals(
         anchors, pred_deltas.detach(), pred_ctr.detach(), level_sizes, batch.image_hw, linear_tf,
         pre_topk=spec.pre_nms_topk_train, min_box_size=spec.min_box_size,
@@ -470,13 +469,11 @@ def training_losses_and_stats(
         num_classes=spec.num_classes,
         uniforms=uniforms["roi"],
     )
-    if mark:
-        mark("sampling")
+    tracing.stage("sampling", mark)
     pooled = pool_features(fpn_feats, rois.boxes, strides=ROI_STRIDES,
                            resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio,
                            impl=spec.roi_align_impl, bwd_impl=spec.roi_align_bwd)
-    if mark:
-        mark("roi_align")
+    tracing.stage("roi_align", mark)
     deltas, iou, emb, reps, logits = model.roi_heads(pooled)
     losses.update(box_iou_losses(
         deltas, iou, rois, Box2BoxTransform(spec.bbox_reg_weights), spec.num_classes,
@@ -514,6 +511,5 @@ def training_losses_and_stats(
     stats["softmax_classifier/cls_accuracy"] = sums[7] / n_valid
     stats["softmax_classifier/fg_cls_accuracy"] = sums[8] / n_fg
     stats["softmax_classifier/false_negative"] = sums[9] / n_fg
-    if mark:
-        mark("heads")
+    tracing.stage("heads", mark)
     return losses, stats

@@ -196,7 +196,15 @@ def get_parser():
     parser.add_argument("--num-machines", type=int, default=1)
     parser.add_argument("--machine-rank", type=int, default=0)
     parser.add_argument("--dist-url", default="")
-    parser.add_argument("--profile-steps", type=int, default=0, help="trace N train steps to OUTPUT_DIR/profile")
+    parser.add_argument("--profile-steps", type=int, default=0,
+                        help="trace N train steps (after 5 warm-up steps) to OUTPUT_DIR/profile/trace.json: "
+                        "torch.profiler's host and device events with the program's spans on the same "
+                        "timeline and threads (category 'program': data.read, data.transform, "
+                        "data.collate and data.h2d on the loader threads, data.wait, train.step and its "
+                        "stage.backbone/rpn/sampling/roi_align/heads/backward/optimizer on the main "
+                        "thread); the log line 'device idle seconds by program span' files each of the "
+                        "device's idle gaps under the innermost span open across it on the thread that "
+                        "launched the work ending the gap ('none' where that thread had no span open)")
     parser.add_argument("--debug-nans", action="store_true", help="run under torch.autograd.detect_anomaly")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return parser
