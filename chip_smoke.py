@@ -64,9 +64,12 @@ In order it
      configs/VOC-COCO/openset_rcnn_ViT_FPN_128k.yaml, norm clipping), each
      in f32 and with TPU.DTYPE bfloat16;
  10. serve: Predictor on the f32 config at 832x1344, batch 8, seeded random
-     weights; warm-up, then timed batches with CUDA events, the stage split,
-     launch counts, output checks, and the cascade with kernel NMS against
-     the cascade with plain NMS;
+     weights; warm-up (one eager call, one CUDA graph capture), then timed
+     batches with CUDA events, each a graph replay that calls no kernel
+     wrapper (Predictor.counts; the wrappers' launch counts stay 0), the
+     replays' launches of K1 and K4 by the device trace (torch.profiler),
+     the stage split, output checks, and the cascade with kernel NMS
+     against the cascade with plain NMS;
  11. train: Trainer on the f32 config at 832x1344, batch 4, on the synthetic
      batch of bench.py (20 GT boxes per image); timed steps, the stage split,
      launch counts, finite losses, frozen parameters and buffers bitwise
@@ -87,7 +90,10 @@ In order it
      1200x800, 2-6 GT boxes each over the VOC-COCO classes, known and
      unknown), decoded in memory and supplied through the transform's
      read_image: both buckets, three full landscape batches and a padded one
-     of 4, two full portrait batches; the metric dict, eval img/s of the
+     of 4, two full portrait batches; Predictor's calls by the tracer's
+     counters (per bucket one eager call and one capture, then replays) and
+     K1's and K4's launches on the calls that ran their wrappers; the
+     metric dict, eval img/s of the
      whole loop against Predictor-alone img/s, host ms per batch, the device
      idle share of one profiled pass, one eval batch under
      torch.cuda.set_sync_debug_mode("error"); then on the f32 config the
@@ -115,7 +121,7 @@ In order it
      (fc1 permuted back to CHW), a caffe2 .pkl of its backbone (BN fused) and
      a JAX-layout .npz, each loaded through load_weights_file bitwise to its
      source; Predictor on the .pth bitwise Predictor on the state dict
-     (batch 8, K1 1 and K4 2 launches); one Trainer step from the .pkl
+     (batch 8, the capturing call: K1 1 and K4 2 launches); one Trainer step from the .pkl
      weights bitwise one from the same state dict (K3, K1, K2 bf16);
  17. predict: python -m openset_rcnn_tpu_torch.tools.predict (its main) with
      --viz on 8 synthetic 800x1200 JPEGs and the .pth: each JSON equal to
@@ -192,6 +198,7 @@ process-wide as this script did before the entry points set them, and
 prints the device time by kernel of one profiled f32 step and whether two
 steps repeat bitwise (no gates): run it on a checkout of each version.
 """
+import contextlib
 import json
 import math
 import re
@@ -523,6 +530,49 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
 
 
+PREDICT_KINDS = ("predict.eager", "predict.graph.capture", "predict.graph.replay")
+# the kernel the device trace counts for each counted wrapper a serving call
+# runs (K4: its second pass, launched once a call)
+REPLAYED = {"roi_align_fwd": "roi_align_fwd_kernel", "nms_keep": "nms_walk_kernel"}
+
+
+@contextlib.contextmanager
+def predict_calls():
+    """{kind: calls} of ``Predictor.__call__`` in the block, by the tracer's
+    counters (tracing is on inside it; filled when it exits). A replay calls
+    no kernel wrapper, so the wrappers' launch counts cover the eager and
+    the capturing calls only."""
+    from openset_rcnn_tpu_torch.utils import tracing
+
+    calls = {}
+    tracing.enable()
+    try:
+        yield calls
+        counters = tracing.snapshot()["counters"]
+        calls.update({kind: counters.get(kind, 0) for kind in PREDICT_KINDS})
+    finally:
+        tracing.disable()
+
+
+def wrapper_calls(calls):
+    """The calls of ``calls`` (``predict_calls``) that ran the kernel wrappers."""
+    return calls["predict.eager"] + calls["predict.graph.capture"]
+
+
+def replayed_launches(torch, fn, reps):
+    """{counted name: launches} of reps calls of fn() by the device trace
+    (``device_events``): the launches of graph replays, which no wrapper
+    counts. 0 for the wrappers a serving call does not run."""
+    out = {name: 0 for name in counted()}
+    for _ in range(3):  # the profiler now and then loses a window's launches: profile again
+        events = device_events(torch, fn, reps)
+        out.update({name: sum(n for key, _, n in events if kernel in key) for name, kernel in REPLAYED.items()})
+        mask_passes = sum(n for key, _, n in events if "nms_iou_mask_kernel" in key)
+        if out["nms_keep"] == mask_passes and all(out[name] >= reps for name in REPLAYED):
+            break
+    return out
+
+
 def reference_weights(torch, cfg):
     """The seeded random init with the box head's first FC scaled by 0.02, as
     the CPU tests temper it: random heads on ~100-magnitude features
@@ -584,9 +634,11 @@ def phase_serve(torch, dev, cfg, label):
     print(f"{label}: model built ({cfg.TPU.DTYPE}) and {SERVE_WARMUP} warm-up batches in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the main path: counts at 0 just before, read just after
+    # the main path: counts at 0 just before, read just after; every batch
+    # replays the graphs captured in the warm-up, calling no kernel wrapper
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    calls = dict(predictor.counts)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(SERVE_BATCHES + 1)]
     wall = time.perf_counter()
     events[0].record()
@@ -595,10 +647,16 @@ def phase_serve(torch, dev, cfg, label):
         events[i + 1].record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - wall) * 1e3 / SERVE_BATCHES
-    launches = read_launches()
+    wrappers = read_launches()
+    calls = {kind: predictor.counts[kind] - n for kind, n in calls.items()}
+    check(calls == {**dict.fromkeys(PREDICT_KINDS, 0), "predict.graph.replay": SERVE_BATCHES},
+          f"{label}: the timed batches' calls {calls}, expected {SERVE_BATCHES} replays")
+    check(wrappers == {name: 0 for name in wrappers}, f"{label}: a replay launched through a wrapper {wrappers}")
+    # the replays' launches, from the device trace of as many replays
+    launches = replayed_launches(torch, lambda: predictor(images, image_hw), SERVE_BATCHES)
     want = {name: 0 for name in launches}
     want.update(roi_align_fwd=SERVE_BATCHES, nms_keep=2 * SERVE_BATCHES)
-    check(launches == want, f"{label} launches {launches}, expected {want}")
+    check(launches == want, f"{label} replays' launches on the device {launches}, expected {want}")
     batch_ms = [events[i].elapsed_time(events[i + 1]) for i in range(SERVE_BATCHES)]
     ms = sum(batch_ms) / SERVE_BATCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -624,7 +682,8 @@ def phase_serve(torch, dev, cfg, label):
           f"peak memory {peak_gb:.2f} GB; valid detections per image {out.valid.sum(1).tolist()}, "
           f"valid proposals {int(v.sum())}, known overflow {out.known_overflow.tolist()}", flush=True)
     print(f"{label} stages (ms): " + json.dumps({k: round(x, 3) for k, x in stages.items()}), flush=True)
-    print(f"{label}: cascade with kernel NMS == cascade with plain NMS; launches " + json.dumps(launches), flush=True)
+    print(f"{label}: cascade with kernel NMS == cascade with plain NMS; {SERVE_BATCHES} timed batches, each a graph "
+          f"replay; the launches of {SERVE_BATCHES} replays by the device trace " + json.dumps(launches), flush=True)
     print(f"{label} profile: " + json.dumps(profile), flush=True)
     print(f"{label}: numerics flags inside a serve batch (the backbone's mark) {json.dumps(flags['inside'])}; "
           f"the caller's, before and after {json.dumps(flags['outside'])}", flush=True)
@@ -1571,17 +1630,22 @@ def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
 
     # the main path, through the user's entry point: counts at 0 just before, read just after
     reset_launches()
-    metrics = do_test(cfg, datasets=[EVAL_DATASET], transform=transform)[EVAL_DATASET]
-    torch.cuda.synchronize()
+    with predict_calls() as calls:
+        metrics = do_test(cfg, datasets=[EVAL_DATASET], transform=transform)[EVAL_DATASET]
+        torch.cuda.synchronize()
     launches = read_launches()
     n_batches = len(batches)
+    # per bucket one eager call and one capture; the later batches replay
+    want_calls = {"predict.eager": 2, "predict.graph.capture": 2, "predict.graph.replay": n_batches - 4}
+    check(calls == want_calls, f"eval: Predictor's calls {calls}, expected {want_calls}")
     want = {name: 0 for name in launches}
-    want.update(roi_align_fwd=n_batches, nms_keep=2 * n_batches)
+    want.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls))
     check(launches == want, f"eval launches {launches}, expected {want}")
     check(set(metrics) == set(voc_keys) and all(math.isfinite(v) for v in metrics.values()),
           f"eval (do_test, fused): metrics {metrics}, expected finite values of {voc_keys}")
     print(f"eval: do_test on {EVAL_DATASET} ({cfg.TPU.DTYPE}, fused cascade), {len(records)} images: "
-          + json.dumps(metrics) + "; launches " + json.dumps(launches), flush=True)
+          + json.dumps(metrics) + "; Predictor's calls " + json.dumps(calls) + "; wrapper launches (eager and "
+          "capturing calls) " + json.dumps(launches), flush=True)
 
     # the loop timed: one warm pass, then one timed pass and one profiled pass
     predictor = Predictor(cfg, seed=0)
@@ -2016,11 +2080,11 @@ def phase_weights(torch, dev, work):
     from_pth = Predictor(cfg, seed=1)
     load_weights_file(str(paths["pth"]), from_pth.model)
     from_state = Predictor(cfg, state_dict=source)
-    from_pth(images, image_hw)  # warm-up
+    from_pth(images, image_hw)  # warm-up, eagerly
     from_state(images, image_hw)
     torch.cuda.synchronize()
     reset_launches()
-    got = from_pth(images, image_hw)
+    got = from_pth(images, image_hw)  # the capture: its wrappers launch once, into the graphs
     launches = read_launches()
     want = from_state(images, image_hw)
     torch.cuda.synchronize()
@@ -2091,13 +2155,17 @@ def phase_predict(torch, dev, work, weights):
     argv = ["--config-file", str(CONFIG_BF16), "--input", str(inputs), "--output", str(out), "--viz",
             "MODEL.WEIGHTS", weights, "MODEL.RPN.DELTA_BIAS_INIT", "1.0"]
     reset_launches()
-    t0 = time.perf_counter()
-    results = predict.main(argv)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
+    with predict_calls() as calls:
+        t0 = time.perf_counter()
+        results = predict.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
     launches = read_launches()
+    # one bucket at batch 1: one eager call, one capture, then replays
+    want_calls = {"predict.eager": 1, "predict.graph.capture": 1, "predict.graph.replay": BATCH - 2}
+    check(calls == want_calls, f"predict: Predictor's calls {calls}, expected {want_calls}")
     expected = {name: 0 for name in launches}
-    expected.update(roi_align_fwd=BATCH, nms_keep=2 * BATCH)
+    expected.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls))
     check(launches == expected, f"predict launches {launches}, expected {expected}")
     files = sorted(p.name for p in out.iterdir())
     check(files == sorted([f"img{i}.json" for i in range(BATCH)] + [f"img{i}_viz.jpg" for i in range(BATCH)]),
@@ -2133,7 +2201,8 @@ def phase_predict(torch, dev, work, weights):
     print(f"predict: the CLI wrote {BATCH} JSON files and overlays ({detections} detections), each equal to "
           f"Predictor + finalize_serve_image on the same pixels; CLI {BATCH / cli_s:.2f} img/s over {cli_s:.2f} s "
           f"(model build, weights, JPEG decode, resize, JSON and overlays included) beside Predictor alone "
-          f"{1e3 / alone_ms:.2f} img/s at batch 1 ({alone_ms:.2f} ms an image); launches {json.dumps(launches)}",
+          f"{1e3 / alone_ms:.2f} img/s at batch 1 ({alone_ms:.2f} ms an image); Predictor's calls "
+          f"{json.dumps(calls)}, wrapper launches (eager and capturing calls) {json.dumps(launches)}",
           flush=True)
     del predictor
     torch.cuda.empty_cache()

@@ -326,6 +326,44 @@ def compute_anchors(spec: ModelSpec, image_hw: Tuple[int, int]) -> Tuple[np.ndar
 
 
 Mark = Optional[Callable[[str], None]]
+Stage = Tuple[str, Callable[..., tuple]]
+
+
+def inference_stages(model: OpensetRCNN, anchors: torch.Tensor, level_sizes: Sequence[int]) -> List[Stage]:
+    """The stages of ``inference_forward`` in order, as (name, fn): each fn
+    takes the previous stage's outputs (the first stage: images and
+    image_hw) and returns its own as a tuple; the last returns
+    (RawDetections,). ``Predictor`` captures each stage as a CUDA graph of
+    its own, so its ``mark`` falls between the same stages."""
+    spec = model.spec
+
+    def backbone(images, image_hw):
+        return model.features(images, image_hw), image_hw
+
+    def rpn(fpn_feats, image_hw):
+        pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)
+        proposals = select_proposals(
+            anchors, pred_deltas, pred_ctr, level_sizes, image_hw,
+            Box2BoxTransformLinear(normalize_by_size=True),
+            pre_topk=spec.pre_nms_topk_test, min_box_size=spec.min_box_size,
+        )
+        return fpn_feats, image_hw, proposals
+
+    def pool(fpn_feats, image_hw, proposals):
+        pooled = pool_features(fpn_feats, proposals.boxes, strides=ROI_STRIDES,
+                               resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio,
+                               impl=spec.roi_align_impl, bwd_impl=spec.roi_align_bwd)
+        return pooled, image_hw, proposals
+
+    def heads(pooled, image_hw, proposals):
+        deltas, iou, emb, reps, logits = model.roi_heads(pooled)
+        return (raw_detections(
+            proposals, deltas, iou, emb, reps, logits, image_hw,
+            Box2BoxTransform(spec.bbox_reg_weights), spec.num_known_classes, spec.reps_per_class,
+            mean_type=spec.mean_type, distance_type=spec.distance_type,
+        ),)
+
+    return [("backbone", backbone), ("rpn", rpn), ("roi_align", pool), ("heads", heads)]
 
 
 def inference_forward(
@@ -339,32 +377,12 @@ def inference_forward(
     """Device part of inference. ``mark(stage)``, when given, is called after
     each stage ("backbone", "rpn", "roi_align", "heads") so a caller can
     time them; it is not called otherwise."""
-    spec = model.spec
-    fpn_feats = model.features(images, image_hw)
-    if mark:
-        mark("backbone")
-    pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)
-    proposals = select_proposals(
-        anchors, pred_deltas, pred_ctr, level_sizes, image_hw,
-        Box2BoxTransformLinear(normalize_by_size=True),
-        pre_topk=spec.pre_nms_topk_test, min_box_size=spec.min_box_size,
-    )
-    if mark:
-        mark("rpn")
-    pooled = pool_features(fpn_feats, proposals.boxes, strides=ROI_STRIDES,
-                           resolution=spec.pooler_resolution, sampling_ratio=spec.roi_sampling_ratio,
-                           impl=spec.roi_align_impl, bwd_impl=spec.roi_align_bwd)
-    if mark:
-        mark("roi_align")
-    deltas, iou, emb, reps, logits = model.roi_heads(pooled)
-    raw = raw_detections(
-        proposals, deltas, iou, emb, reps, logits, image_hw,
-        Box2BoxTransform(spec.bbox_reg_weights), spec.num_known_classes, spec.reps_per_class,
-        mean_type=spec.mean_type, distance_type=spec.distance_type,
-    )
-    if mark:
-        mark("heads")
-    return raw
+    out = (images, image_hw)
+    for name, fn in inference_stages(model, anchors, level_sizes):
+        out = fn(*out)
+        if mark:
+            mark(name)
+    return out[0]
 
 
 COUNT_STATS = ("rpn/num_pos_anchors", "rpn/num_neg_anchors", "rpn/obj_num_pos_anchors", "rpn/obj_num_neg_anchors",

@@ -45,7 +45,9 @@ Span names, dotted by layer (where each is recorded):
   finalize and the evaluator's ``process``), ``eval.evaluate`` (the
   evaluator's ``evaluate``, per pass).
 
-Counter: ``data.images`` (images transformed).
+Counters: ``data.images`` (images transformed); ``predict.eager``,
+``predict.graph.capture``, ``predict.graph.replay`` (``Predictor.__call__``,
+one of the three per call: run eagerly, captured as CUDA graphs, replayed).
 """
 from __future__ import annotations
 
