@@ -12,21 +12,26 @@ the name that ``BENCHMARK.json`` or a cell's file gives:
 * ``traffic/<mix>.json``: the parameters that ``harness/traffic.py`` reads;
 * ``entries/<entry>.py``: a window loop, with ``run(ctx)``;
 * ``metrics/<name>.py``, or ``metrics/<family>.py`` for every metric named
-  ``<family>.<suffix>``: a reader with ``read(trace, suffix)``.
+  ``<family>.<suffix>``: a reader with ``read(trace, suffix)``;
+* ``reference/backbones/<trunk>.py`` and ``counts/backbones/<trunk>.py``,
+  for the ``MODEL.BACKBONE.NAME`` of a configuration: the reference's trunk
+  and its operation counts.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files; no file here has to change.
+A later change adds a configuration, a mix, a cell, a metric or a trunk by
+adding files; no file here has to change.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 from types import ModuleType
 from typing import Any, Dict
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
+MODULE_NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 class SpecError(ValueError):
@@ -93,6 +98,15 @@ def metric_reader(name: str) -> ModuleType:
         if path.is_file():
             return _module(path, f"perfbench.metrics.{stem.replace('.', '_')}")
     raise SpecError(f"no reader for metric {name!r} (metrics/{name}.py or metrics/{name.split('.', 1)[0]}.py)")
+
+
+def backbone(part: str, name: str) -> ModuleType:
+    """The trunk that ``MODEL.BACKBONE.NAME`` ``name`` names, as ``part``
+    (``reference`` or ``counts``) has it: ``<part>/backbones/<name>.py``."""
+    path = BENCH / part / "backbones" / f"{name}.py"
+    if not MODULE_NAME.fullmatch(name) or not path.is_file():
+        raise SpecError(f"no {part} backbone named {name!r} ({path.relative_to(ROOT)} is missing)")
+    return _module(path, f"perfbench.{part}.backbones.{name}")
 
 
 def benchmark() -> Dict[str, Any]:

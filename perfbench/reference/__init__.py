@@ -9,5 +9,7 @@ gather, the tensor-parallel box head, the Swin backbone, the native NMS and
 the multi-process merges removed. It imports nothing of the program, so a
 later change to the program cannot move it. The modules keep their
 source's docstrings (each says what it ports); ``model.py`` reads a
-configuration file's ``cfg``, builds the detector and runs its steps.
+configuration file's ``cfg``, builds the detector and runs its steps. The
+trunk is the one ``backbones/<MODEL.BACKBONE.NAME>.py`` builds, so a new
+trunk is a new file there.
 """

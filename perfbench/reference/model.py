@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 from .engine.optimizer import freeze, warmup_multistep_schedule
 from .evaluation.postprocess import FinalDetections, PostprocessConfig, finalize_serve_image
-from .models.detector import (ROI_STRIDES, ModelSpec, OpensetRCNN, build_model, compute_anchors,
-                              inference_forward, training_losses_and_stats)
+from .models.detector import (ROI_STRIDES, OpensetRCNN, build_model, compute_anchors, inference_forward,
+                              training_losses_and_stats)
 from .models.roi_heads import pool_features
 from .models.serving import fused_cascade
 from .structures import GroundTruth, ImageBatch
@@ -103,17 +103,17 @@ def skeleton(cfg: Mapping) -> OpensetRCNN:
     """The detector's module tree on the meta device: the leaves, shapes and
     layer types that the weights are made for."""
     with torch.device("meta"):
-        return OpensetRCNN(ModelSpec.from_cfg(Cfg(cfg)))
+        return OpensetRCNN(Cfg(cfg))
 
 
 class Reference:
     def __init__(self, cfg: Mapping, state_dict: Mapping[str, torch.Tensor], device: torch.device,
                  precision: str = "stated"):
         self.cfg = Cfg(cfg)
-        self.spec = ModelSpec.from_cfg(self.cfg)
         self.device = torch.device(device)
         self.precision = precision
-        self.model = build_model(self.spec, self.device, {k: v.to(self.device) for k, v in state_dict.items()})
+        self.model = build_model(self.cfg, self.device, {k: v.to(self.device) for k, v in state_dict.items()})
+        self.spec = self.model.spec
         rh, pln = self.cfg.MODEL.ROI_HEADS, self.cfg.MODEL.PLN
         self.post = PostprocessConfig(
             obj_score_thresh=rh.OBJ_SCORE_THRESH_TEST, stage1_nms_thresh=rh.NMS_THRESH_TEST,

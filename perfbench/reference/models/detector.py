@@ -26,8 +26,8 @@ from ..ops.losses import LOCAL, LocalSum
 from ..ops.roi_align import ADAPTIVE
 from ..ops.sampling import draw_uniforms
 from ..structures import ImageBatch, RawDetections
+from ...harness import specs
 from .fpn import FPN
-from .resnet import ResNet
 from .roi_heads import (
     ROI_ALIGN_IMPLS,
     BoxHead,
@@ -42,7 +42,6 @@ from .roi_heads import (
     raw_detections,
 )
 from .rpn import ClsFreeRPNHead, rpn_losses, rpn_targets, select_proposals
-from .vit import ViTSimpleFPN
 
 RPN_STRIDES = (4, 8, 16, 32, 64)
 ROI_STRIDES = (4, 8, 16, 32)
@@ -100,15 +99,9 @@ class ModelSpec(NamedTuple):
     # misc
     freeze_at: int
     compute_dtype: str
-    remat: bool
-    backbone_name: str
     rpn_delta_bias_init: float
-    resnet_depth: int
     roi_align_impl: str
     roi_align_bwd: str
-    swin_size: str
-    swin_drop_path: float
-    vit_drop_path: float
 
     @staticmethod
     def from_cfg(cfg, id_map: Optional[Sequence[int]] = None) -> "ModelSpec":
@@ -163,15 +156,9 @@ class ModelSpec(NamedTuple):
             id_map=tuple(id_map),
             freeze_at=m.BACKBONE.FREEZE_AT,
             compute_dtype=cfg.TPU.DTYPE,
-            remat=cfg.TPU.get("REMAT", False),
-            backbone_name=m.BACKBONE.NAME,
             rpn_delta_bias_init=m.RPN.get("DELTA_BIAS_INIT", 0.0),
-            resnet_depth=m.RESNETS.DEPTH,
             roi_align_impl=cfg.TPU.ROI_ALIGN_IMPL,
             roi_align_bwd=cfg.TPU.ROI_ALIGN_BWD,
-            swin_size=m.SWIN.SIZE,
-            swin_drop_path=m.SWIN.get("DROP_PATH_RATE", 0.0),
-            vit_drop_path=m.VIT.get("DROP_PATH_RATE", 0.0) if "VIT" in m else 0.0,
         )
 
 
@@ -198,27 +185,25 @@ def known_ids_id_map(num_classes: int, known_contiguous_ids: Sequence[int]) -> L
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-RESNET, SWIN, VIT = "build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone"
 
 
 class OpensetRCNN(nn.Module):
-    """Every parameter of the detector; the functions below do the rest.
+    """Every parameter of the detector of configuration ``cfg``; the
+    functions below do the rest.
 
-    The backbone is the one ``MODEL.BACKBONE.NAME`` names, as the JAX
-    module builds it (``openset_rcnn_tpu/models/detector.py:196-220``): a
-    ResNet + FPN (``TPU.REMAT`` recomputes its blocks in the backward), a
-    Swin Transformer + FPN, or the ViT with its simple pyramid (no ``fpn``).
-    It runs in float32 or bfloat16 (``TPU.DTYPE``; bf16 covers the trunk,
-    FPN, RPN head and box head, with parameters, losses and the other heads
-    in f32, as the JAX module) with the static RoIAlign grid or the adaptive
-    one (``TPU.ROI_SAMPLING_RATIO -1``, which pools at the gather levels with
-    f32 backward accumulators, see ``pool_features``).
+    The backbone is the trunk that ``MODEL.BACKBONE.NAME`` names, built by
+    ``backbones/<name>.py`` (``harness/specs.py::backbone``), under an FPN
+    of the widths it gives, or with no ``fpn`` where it emits the pyramid
+    itself. It runs in float32 or bfloat16 (``TPU.DTYPE``; bf16 covers the
+    trunk, FPN, RPN head and box head, with parameters, losses and the other
+    heads in f32, as the JAX module) with the static RoIAlign grid or the
+    adaptive one (``TPU.ROI_SAMPLING_RATIO -1``, which pools at the gather
+    levels with f32 backward accumulators, see ``pool_features``).
     """
 
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, cfg):
         super().__init__()
-        if spec.backbone_name not in (RESNET, VIT):
-            raise ValueError(f"the reference builds {(RESNET, VIT)}, not {spec.backbone_name!r}")
+        spec = ModelSpec.from_cfg(cfg)
         if spec.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
         if spec.roi_sampling_ratio < 1 and spec.roi_sampling_ratio != ADAPTIVE:
@@ -229,12 +214,8 @@ class OpensetRCNN(nn.Module):
         dtype = COMPUTE_DTYPES[spec.compute_dtype]
         head_dtype = None if dtype == torch.float32 else dtype  # the JAX heads' dtype
         num_anchors = len(spec.anchor_aspect_ratios) * len(spec.anchor_sizes[0])
-        if spec.backbone_name == VIT:  # the ViTDet trunk emits the pyramid itself
-            self.backbone = ViTSimpleFPN(compute_dtype=dtype, drop_path_rate=spec.vit_drop_path)
-            self.fpn = None
-        else:
-            self.backbone = ResNet(depth=spec.resnet_depth, compute_dtype=dtype, remat=spec.remat)
-            self.fpn = FPN(out_channels=256, compute_dtype=dtype)
+        self.backbone, fpn_in = specs.backbone("reference", cfg.MODEL.BACKBONE.NAME).build(cfg, dtype)
+        self.fpn = None if fpn_in is None else FPN(out_channels=256, compute_dtype=dtype, in_channels=fpn_in)
         self.rpn_head = ClsFreeRPNHead(256, num_anchors, spec.rpn_delta_bias_init, compute_dtype=head_dtype)
         self.box_head = BoxHead(in_dim=256 * spec.pooler_resolution**2, fc_dim=spec.fc_dim,
                                 compute_dtype=head_dtype)
@@ -254,7 +235,7 @@ class OpensetRCNN(nn.Module):
     @property
     def branch_rates(self) -> List[float]:
         """The drop-path rate of every residual branch of the backbone, in
-        call order (empty for the ResNet)."""
+        call order (empty for a trunk that drops none)."""
         return getattr(self.backbone, "branch_rates", [])
 
     def preprocess(self, images: torch.Tensor, image_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -295,10 +276,10 @@ class OpensetRCNN(nn.Module):
         return deltas, iou, emb, reps, self.classifier(rec)
 
 
-def build_model(spec: ModelSpec, device: Union[str, torch.device],
-                state_dict: Dict[str, torch.Tensor]) -> OpensetRCNN:
-    """The detector on ``device`` with ``state_dict``, in eval mode."""
-    model = OpensetRCNN(spec)
+def build_model(cfg, device: Union[str, torch.device], state_dict: Dict[str, torch.Tensor]) -> OpensetRCNN:
+    """The detector of ``cfg`` on ``device`` with ``state_dict``, in eval
+    mode."""
+    model = OpensetRCNN(cfg)
     model.load_state_dict(state_dict, strict=True)
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
@@ -397,8 +378,8 @@ def training_losses_and_stats(
     holds the step's random draws (``sampling_draws``, or a test's): "rpn"
     (B, 2, 2, R) and "roi" (B, 3, P + G) for the samplers (see
     ``rpn_targets`` and ``label_and_sample_proposals``), and, when the
-    backbone drops paths (Swin, ViT with a rate above 0; JAX's ``dropout``
-    stream), "drop_path", (len(model.branch_rates), B) bool keep masks.
+    backbone drops paths (a trunk with ``branch_rates`` above 0; JAX's
+    ``dropout`` stream), "drop_path", (len(model.branch_rates), B) bool keep masks.
     Drop-path is on here only: ``inference_forward`` never passes masks,
     whatever the module's ``training`` flag. Targets and
     proposals carry no gradient (the JAX ``stop_gradient`` on the
