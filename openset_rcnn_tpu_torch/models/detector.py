@@ -111,6 +111,7 @@ class ModelSpec(NamedTuple):
     roi_align_impl: str
     roi_align_bwd: str
     swin_size: str
+    swin_window: int
     swin_drop_path: float
     vit_drop_path: float
 
@@ -175,6 +176,7 @@ class ModelSpec(NamedTuple):
             roi_align_impl=cfg.TPU.ROI_ALIGN_IMPL,
             roi_align_bwd=cfg.TPU.ROI_ALIGN_BWD,
             swin_size=m.SWIN.SIZE,
+            swin_window=m.SWIN.WINDOW,
             swin_drop_path=m.SWIN.get("DROP_PATH_RATE", 0.0),
             vit_drop_path=m.VIT.get("DROP_PATH_RATE", 0.0) if "VIT" in m else 0.0,
         )
@@ -241,7 +243,7 @@ class OpensetRCNN(nn.Module):
             self.backbone = ViTSimpleFPN(compute_dtype=dtype, drop_path_rate=spec.vit_drop_path)
             self.fpn = None
         elif spec.backbone_name == SWIN:
-            self.backbone = SwinTransformer(size=spec.swin_size, compute_dtype=dtype,
+            self.backbone = SwinTransformer(size=spec.swin_size, window=spec.swin_window, compute_dtype=dtype,
                                             drop_path_rate=spec.swin_drop_path)
             self.fpn = FPN(out_channels=256, compute_dtype=dtype, in_channels=self.backbone.out_channels)
         else:
@@ -329,16 +331,48 @@ Mark = Optional[Callable[[str], None]]
 Stage = Tuple[str, Callable[..., tuple]]
 
 
+TRUNK_STAGE = "backbone."  # prefix of the marks of a trunk's own stages
+
+
+def backbone_stages(model: OpensetRCNN) -> List[Stage]:
+    """The backbone as stages: one, "backbone" (preprocess, trunk, FPN),
+    or, where the trunk gives its own (``resolution_stages()``, Swin's four
+    stages), "backbone.<name>" for each (the first with the preprocess),
+    then "backbone" for the FPN. Either way the last stage returns
+    (P2-P6, image_hw)."""
+    trunk = getattr(model.backbone, "resolution_stages", None)
+    if trunk is None:
+        def backbone(images, image_hw):
+            return model.features(images, image_hw), image_hw
+
+        return [("backbone", backbone)]
+
+    def run(fn, first):
+        def stage(*args):
+            if first:
+                images, image_hw = args
+                x, feats = model.preprocess(images, image_hw), {}
+            else:
+                x, feats, image_hw = args
+            x, feats = fn(x, feats)
+            return x, feats, image_hw
+        return stage
+
+    def fpn(x, feats, image_hw):
+        return model.fpn(feats), image_hw
+
+    stages = [(TRUNK_STAGE + name, run(fn, i == 0)) for i, (name, fn) in enumerate(trunk())]
+    return stages + [("backbone", fpn)]
+
+
 def inference_stages(model: OpensetRCNN, anchors: torch.Tensor, level_sizes: Sequence[int]) -> List[Stage]:
     """The stages of ``inference_forward`` in order, as (name, fn): each fn
     takes the previous stage's outputs (the first stage: images and
     image_hw) and returns its own as a tuple; the last returns
     (RawDetections,). ``Predictor`` captures each stage as a CUDA graph of
-    its own, so its ``mark`` falls between the same stages."""
+    its own, so its ``mark`` falls between the same stages. The backbone's
+    are ``backbone_stages``."""
     spec = model.spec
-
-    def backbone(images, image_hw):
-        return model.features(images, image_hw), image_hw
 
     def rpn(fpn_feats, image_hw):
         pred_deltas, pred_ctr, _ = model.rpn_predictions(fpn_feats)
@@ -363,7 +397,7 @@ def inference_stages(model: OpensetRCNN, anchors: torch.Tensor, level_sizes: Seq
             mean_type=spec.mean_type, distance_type=spec.distance_type,
         ),)
 
-    return [("backbone", backbone), ("rpn", rpn), ("roi_align", pool), ("heads", heads)]
+    return backbone_stages(model) + [("rpn", rpn), ("roi_align", pool), ("heads", heads)]
 
 
 def inference_forward(
@@ -375,12 +409,16 @@ def inference_forward(
     mark: Mark = None,
 ) -> RawDetections:
     """Device part of inference. ``mark(stage)``, when given, is called after
-    each stage ("backbone", "rpn", "roi_align", "heads") so a caller can
-    time them; it is not called otherwise."""
+    each stage (a trunk's own "backbone.<name>" stages where it gives them,
+    then "backbone", "rpn", "roi_align", "heads") so a caller can time them;
+    it is not called otherwise. A trunk's own stages are also host spans
+    (``tracing.stage``)."""
     out = (images, image_hw)
     for name, fn in inference_stages(model, anchors, level_sizes):
         out = fn(*out)
-        if mark:
+        if name.startswith(TRUNK_STAGE):
+            tracing.stage(name, mark)
+        elif mark:
             mark(name)
     return out[0]
 

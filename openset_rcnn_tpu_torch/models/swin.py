@@ -21,16 +21,26 @@ then the probabilities cast to v's dtype; exact GELU.
 Stochastic depth: ``forward(x, drop_path=masks)`` takes per-sample keep
 masks, (2 * blocks, B) in call order (each block's attention branch, then
 its MLP branch); without masks it is off (inference).
+
+Stages: ``resolution_stages()`` gives the four resolution stages
+(res2..res5, each ending after its output norm) as separate calls, so the
+serving path can mark and capture each on its own; ``forward`` runs the
+same calls in turn.
+Counters (``utils/tracing.py``, on each call that runs the Python code):
+``swin.tokens``, the tokens entering attention blocks, and
+``swin.window_tokens``, the tokens those blocks attend over once padded to
+window multiples.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from .resnet import Conv2d
 from .transformer import LayerNorm, Linear, drop_path, reset_transformer_parameters, same_pad
 
@@ -207,21 +217,49 @@ class SwinTransformer(nn.Module):
             self._masks[key] = torch.from_numpy(_shift_mask(key[0], key[1], w, w // 2)).to(device)
         return self._masks[key]
 
+    def stage(self, s: int, x: torch.Tensor, drop_path: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Resolution stage ``s``: the patch embed (``s`` 0, on NCHW images)
+        or the previous stage's patch merging (on its (B, H, W, C) tokens),
+        then the stage's blocks and its output norm. Returns (the tokens
+        after the blocks, ``res{s + 2}`` as NCHW). Counts the tokens that
+        enter its blocks (``swin.tokens``) and those they attend over once
+        padded to window multiples (``swin.window_tokens``)."""
+        if s == 0:
+            x = x.to(self.compute_dtype)
+            x = self.patch_embed(same_pad(x, 4, 4)).permute(0, 2, 3, 1)  # (B, H, W, C)
+            x = self.patch_norm(x)
+        else:
+            x = getattr(self, f"downsample{s - 1}")(x)
+        B, H, W, _ = x.shape
+        w, depth, blk = self.window, self.depths[s], sum(self.depths[:s])
+        tracing.count("swin.tokens", depth * B * H * W)
+        tracing.count("swin.window_tokens", depth * B * (-(-H // w) * w) * (-(-W // w) * w))
+        mask = self.shift_mask(H, W, x.device)
+        for b in range(depth):
+            keep = None if drop_path is None else drop_path[2 * (blk + b): 2 * (blk + b) + 2]
+            x = getattr(self, f"stage{s}_block{b}")(x, mask, keep)
+        return x, getattr(self, f"out_norm{s}")(x).permute(0, 3, 1, 2)
+
+    def resolution_stages(self) -> List[Tuple[str, Callable[..., tuple]]]:
+        """The resolution stages in order, as (``res2``..``res5``, fn):
+        ``fn(x, feats)`` runs ``stage`` on ``x`` (the images, then the
+        previous stage's tokens) and returns (its tokens, ``feats`` with its
+        output added). ``models/detector.py::inference_stages`` runs each as
+        a stage of its own."""
+        def run(s):
+            def fn(x, feats):
+                x, out = self.stage(s, x)
+                return x, {**feats, f"res{s + 2}": out}
+            return fn
+
+        return [(f"res{s + 2}", run(s)) for s in range(len(self.depths))]
+
     def forward(self, x: torch.Tensor, drop_path: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """x: NCHW images; ``drop_path``: (2 * blocks, B) keep masks or None."""
-        x = x.to(self.compute_dtype)
-        x = self.patch_embed(same_pad(x, 4, 4)).permute(0, 2, 3, 1)  # (B, H, W, C)
-        x = self.patch_norm(x)
-        outs, blk = {}, 0
-        for s, depth in enumerate(self.depths):
-            mask = self.shift_mask(x.shape[1], x.shape[2], x.device)
-            for b in range(depth):
-                keep = None if drop_path is None else drop_path[2 * blk: 2 * blk + 2]
-                x = getattr(self, f"stage{s}_block{b}")(x, mask, keep)
-                blk += 1
-            outs[f"res{s + 2}"] = getattr(self, f"out_norm{s}")(x).permute(0, 3, 1, 2)
-            if s < len(self.depths) - 1:
-                x = getattr(self, f"downsample{s}")(x)
+        outs = {}
+        for s in range(len(self.depths)):
+            x, outs[f"res{s + 2}"] = self.stage(s, x, drop_path=drop_path)
         return outs
 
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -39,7 +39,8 @@ Span names, dotted by layer (where each is recorded):
 * ``predict`` (``Predictor.__call__``, the copy to the device included),
   ``train.step`` (``Trainer.step``) and its stages ``stage.backbone``,
   ``stage.rpn``, ``stage.sampling``, ``stage.roi_align``, ``stage.heads``,
-  ``stage.backward``, ``stage.optimizer``;
+  ``stage.backward``, ``stage.optimizer``; inside ``predict``'s eager
+  calls, a trunk's own stages ``stage.backbone.res2`` .. ``.res5`` (Swin);
 * ``eval.wait`` (``HostCopy.numpy``'s wait for the copies),
   ``eval.consume`` (per batch, with its ``image_ids``: the cascade or
   finalize and the evaluator's ``process``), ``eval.evaluate`` (the
@@ -47,7 +48,10 @@ Span names, dotted by layer (where each is recorded):
 
 Counters: ``data.images`` (images transformed); ``predict.eager``,
 ``predict.graph.capture``, ``predict.graph.replay`` (``Predictor.__call__``,
-one of the three per call: run eagerly, captured as CUDA graphs, replayed).
+one of the three per call: run eagerly, captured as CUDA graphs, replayed);
+``swin.tokens``, ``swin.window_tokens`` (``models/swin.py``, per stage of
+an eager or capturing call: the tokens entering its attention blocks, and
+those padded to window multiples).
 """
 from __future__ import annotations
 

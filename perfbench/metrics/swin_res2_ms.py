@@ -1,0 +1,12 @@
+"""``swin_res2_ms.<suffix>``: device ms of a serving batch from its start
+to the program's "backbone.res2" mark: the preprocess, the patch embedding
+and Swin's res2 stage (its blocks on the finest grid, the most windows, and
+its output norm), a mean over the traced window. CUDA events at
+``Predictor``'s ``mark`` callbacks; None where the trunk gives no such mark
+(a program or a trunk without Swin's stage marks)."""
+from perfbench.metrics._common import inputs, mean
+
+
+def read(run, suffix):
+    got = inputs(run, "marks")
+    return None if got is None else mean(got[0].between_ms("begin", "backbone.res2"))

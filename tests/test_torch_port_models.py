@@ -103,7 +103,9 @@ def jax_features(setup):
 
 def test_model_spec_from_cfg_matches_jax(setup):
     jax_fields = setup["spec"]._asdict()
-    assert setup["pspec"]._asdict() == {k: jax_fields[k] for k in port_det.ModelSpec._fields}
+    port_only = {"swin_window": 7}  # MODEL.SWIN.WINDOW, which JAX's spec does not carry to its trunk
+    assert setup["pspec"]._asdict() == {**{k: jax_fields[k] for k in port_det.ModelSpec._fields
+                                           if k not in port_only}, **port_only}
 
 
 def test_remat_raises_until_ported():

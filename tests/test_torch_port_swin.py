@@ -269,7 +269,8 @@ def test_frozen_set_matches_jax_trainable_mask(step):
 
 
 def drop_path_stays_off(backbone_cls, config, tmp_path, monkeypatch):
-    """Every call of ``backbone_cls.forward`` made by ``Predictor`` (on its
+    """Every call of ``backbone_cls.forward`` (of ``stage`` where the trunk
+    serves stage by stage, as Swin does) made by ``Predictor`` (on its
     eval model and on the same model in train mode, as ``do_train``'s evals
     run it) and by ``do_test`` gets no drop-path masks, at a rate of 0.2."""
     from openset_rcnn_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
@@ -279,13 +280,14 @@ def drop_path_stays_off(backbone_cls, config, tmp_path, monkeypatch):
     from tests.test_e2e import CLASSES, make_cfg
 
     seen = []
-    forward = backbone_cls.forward
+    name = "stage" if hasattr(backbone_cls, "stage") else "forward"
+    method = getattr(backbone_cls, name)
 
-    def spy(self, x, drop_path=None):
+    def spy(self, *args, drop_path=None):
         seen.append(drop_path)
-        return forward(self, x, drop_path=drop_path)
+        return method(self, *args, drop_path=drop_path)
 
-    monkeypatch.setattr(backbone_cls, "forward", spy)
+    monkeypatch.setattr(backbone_cls, name, spy)
     cfg = load_cfg(port_cfg, config)
     cfg.MODEL.SWIN.DROP_PATH_RATE = cfg.MODEL.VIT.DROP_PATH_RATE = 0.2
     predictor = Predictor(cfg, device="cpu")
