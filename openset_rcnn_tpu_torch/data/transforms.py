@@ -9,10 +9,15 @@ portrait, e.g. 832x1344 and 1344x832) so the device sees at most two shapes
 MAX_GT with a validity mask.
 
 Copy of ``openset_rcnn_tpu/data/transforms.py``, kept in the port so that it
-imports nothing of the JAX package. Two changes: ``cv2`` and ``PIL`` are
+imports nothing of the JAX package. Three changes: ``cv2`` and ``PIL`` are
 imported inside the functions that use them, so importing the port needs
-neither, and the image is read by one overridable method,
-``DetectionTransform.read_image``.
+neither; the image is read by one overridable method,
+``DetectionTransform.read_image``; and PIL's BILINEAR resize of uint8
+3-channel images runs in native code (``resize_native``, PIL's bytes), and
+``DetectionTransform`` has it write the resized, flipped image straight into
+the bucket, zeroing only the margins. PIL runs where the native library cannot be built.
+Each resize with ``interp="pil"`` counts ``data.resize.native`` or
+``data.resize.pil`` (``resize_counts``, and the tracer's counters).
 """
 from __future__ import annotations
 
@@ -22,6 +27,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils import tracing
+from . import resize_native
+
+#: Resizes by route since import, tracing on or off.
+resize_counts = {"data.resize.native": 0, "data.resize.pil": 0}
+
+
+def _counted(route: str) -> None:
+    resize_counts[route] += 1
+    tracing.count(route)
 
 
 @dataclass
@@ -67,11 +81,18 @@ def resize_image(img: np.ndarray, nh: int, nw: int, interp: str) -> np.ndarray:
     INTER_LINEAR keeps a fixed 2x2 tap, so the two produce different pixels
     whenever scale < 1 — the reference-parity drift suspect VERDICT r3
     named. interp="cv2" keeps the (slightly faster) OpenCV path for
-    throughput-only runs.
+    throughput-only runs. The "pil" resize of a uint8 3-channel image runs
+    in native code with PIL's own arithmetic (``resize_native``), bitwise
+    PIL's, and in PIL where that cannot be built.
     """
     if (nh, nw) == img.shape[:2]:
         return img
     if interp == "pil":
+        out = resize_native.resize(img, nh, nw)
+        if out is not None:
+            _counted("data.resize.native")
+            return out
+        _counted("data.resize.pil")
         from PIL import Image
 
         return np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
@@ -133,7 +154,6 @@ class DetectionTransform:
 
         short = self.min_sizes[rng.randint(len(self.min_sizes))] if len(self.min_sizes) > 1 else self.min_sizes[0]
         nh, nw = resize_shortest_edge(oh, ow, short, self.max_size)
-        img = resize_image(img, nh, nw, self.interp)
 
         boxes = np.asarray(
             [a["bbox"] for a in record.get("annotations", [])], np.float32
@@ -144,8 +164,8 @@ class DetectionTransform:
         sx, sy = nw / ow, nh / oh
         boxes = boxes * np.asarray([sx, sy, sx, sy], np.float32)
 
-        if self.flip and rng.rand() < 0.5:
-            img = img[:, ::-1]
+        flip = self.flip and rng.rand() < 0.5
+        if flip:
             x1 = nw - boxes[:, 2]
             x2 = nw - boxes[:, 0]
             boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], axis=1)
@@ -154,8 +174,18 @@ class DetectionTransform:
         # keep uint8 end-to-end (decode and cv2 resize are uint8): bit-
         # identical to the old f32 widening but 4x less host memory and
         # host->device transfer; the model casts on device (preprocess).
-        padded = np.zeros((bh, bw, 3), np.uint8)
-        padded[:nh, :nw] = img
+        padded = None
+        if self.interp == "pil" and (nh, nw) != (oh, ow) and nh <= bh and nw <= bw:
+            # resized and flipped straight into the bucket, margins zeroed
+            padded = resize_native.resize(img, nh, nw, (bh, bw), mirror=flip)
+            if padded is not None:
+                _counted("data.resize.native")
+        if padded is None:
+            img = resize_image(img, nh, nw, self.interp)
+            if flip:
+                img = img[:, ::-1]
+            padded = np.zeros((bh, bw, 3), np.uint8)
+            padded[:nh, :nw] = img
 
         n = min(len(boxes), self.max_gt)
         out_boxes = np.zeros((self.max_gt, 4), np.float32)

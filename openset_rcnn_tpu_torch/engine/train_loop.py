@@ -238,7 +238,9 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
 
     Args:
         profile_steps: if > 0, a ``torch.profiler`` trace of that many steps
-            (after 5 warm-up steps) into ``OUTPUT_DIR/profile``, with the
+            (after 5 warm-up steps; from before the first one's batch is
+            taken, so its wait and the loader's refill lie inside) into
+            ``OUTPUT_DIR/profile``, with the
             program's spans of those steps (``utils/tracing.py``: the loader
             threads, ``train.step`` and its stages) on the same timeline, and
             the device's idle seconds by span in the log.
@@ -311,8 +313,6 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
         for batch, meta in device_prefetch(iter(loader), device):
             if it >= max_iter:
                 break
-            if it == profile_start and profiler is None:
-                profiler = _start_profiler(device)
             metrics = trainer.step(batch)
             it = trainer.state.step
             if profiler is not None and it >= profile_start + profile_steps:
@@ -332,6 +332,8 @@ def do_train(cfg, resume: bool = False, profile_steps: int = 0, debug_nans: bool
                 results = do_test(cfg, weights, device=device, seed=seed)
                 for ds, res in results.items():
                     writer.write(it, {f"{ds}/{k}": v for k, v in res.items() if np.isscalar(v)})
+            if it == profile_start and profiler is None:
+                profiler = _start_profiler(device)
         if profiler is not None:
             _stop_profiler(profiler, device, profile_dir)
 

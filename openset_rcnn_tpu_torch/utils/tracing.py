@@ -46,7 +46,9 @@ Span names, dotted by layer (where each is recorded):
   finalize and the evaluator's ``process``), ``eval.evaluate`` (the
   evaluator's ``evaluate``, per pass).
 
-Counters: ``data.images`` (images transformed); ``predict.eager``,
+Counters: ``data.images`` (images transformed); ``data.resize.native``,
+``data.resize.pil`` (``data/transforms.py``, one per image resized with
+``interp="pil"``: in native code or in PIL); ``predict.eager``,
 ``predict.graph.capture``, ``predict.graph.replay`` (``Predictor.__call__``,
 one of the three per call: run eagerly, captured as CUDA graphs, replayed);
 ``swin.tokens``, ``swin.window_tokens`` (``models/swin.py``, per stage of

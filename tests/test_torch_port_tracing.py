@@ -245,7 +245,7 @@ def test_eval_loop_timings_are_its_spans(predictor):
     assert [ms(s) for s in consumes] == timings[0]["consume_ms"] + timings[1]["consume_ms"]
     assert [s["request"] for s in consumes] == [0, 1, 2] * 2 == [s["request"] for s in waits]
     assert [s["image_ids"] for s in consumes[:3]] == [[100, 101], [102, 103], [104]]
-    assert snap["counters"] == {"data.images": 10, "predict.eager": 6}  # on the CPU every call runs eagerly
+    assert snap["counters"] == {"data.images": 10, "data.resize.native": 10, "predict.eager": 6}  # on the CPU every call runs eagerly
     predicts = by_name(snap, "predict")
     assert [s["request"] for s in predicts] == [0, 1, 2] * 2
     assert {s["thread"] for s in predicts + waits + consumes} == {threading.get_native_id()}
