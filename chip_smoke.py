@@ -66,7 +66,7 @@ In order it
  10. serve: Predictor on the f32 config at 832x1344, batch 8, seeded random
      weights; warm-up (one eager call, one CUDA graph capture), then timed
      batches with CUDA events, each a graph replay that calls no kernel
-     wrapper (Predictor.counts; the wrappers' launch counts stay 0), the
+     wrapper (the tracer's predict.* counters; its kernel.* counters stay 0), the
      replays' launches of K1 and K4 by the device trace (torch.profiler),
      the stage split, output checks, and the cascade with kernel NMS
      against the cascade with plain NMS;
@@ -506,28 +506,35 @@ def load_cfg(path=CONFIG, **tpu):
     return cfg
 
 
-def counted():
-    """The wrappers that count their kernel launches and the attribute each
-    count is kept in, by kernel name (the adaptive grid's modes of K1 and K2
-    f32 are counted apart)."""
-    from openset_rcnn_tpu_torch.ops.iou_match import iou_match
-    from openset_rcnn_tpu_torch.ops.nms import nms_keep
-    from openset_rcnn_tpu_torch.ops.roi_align import roi_align, roi_align_bwd, roi_align_bwd_bf16, roi_align_window
+# the tracer's counter of each kernel's launches by its wrapper, by kernel name
+# (the adaptive grid's modes of K1 and K2 f32 are counted apart)
+COUNTED = {"roi_align_fwd": "kernel.roi_align_fwd", "roi_align_fwd_adaptive": "kernel.roi_align_fwd.adaptive",
+           "roi_align_bwd": "kernel.roi_align_bwd", "roi_align_bwd_adaptive": "kernel.roi_align_bwd.adaptive",
+           "roi_align_bwd_bf16": "kernel.roi_align_bwd_bf16", "iou_match": "kernel.iou_match",
+           "nms_keep": "kernel.nms_keep", "roi_align_window": "kernel.roi_align_window"}
 
-    return {"roi_align_fwd": (roi_align, "launches"), "roi_align_fwd_adaptive": (roi_align, "adaptive_launches"),
-            "roi_align_bwd": (roi_align_bwd, "launches"),
-            "roi_align_bwd_adaptive": (roi_align_bwd, "adaptive_launches"),
-            "roi_align_bwd_bf16": (roi_align_bwd_bf16, "launches"), "iou_match": (iou_match, "launches"),
-            "nms_keep": (nms_keep, "launches"), "roi_align_window": (roi_align_window, "launches")}
+
+def counters():
+    """The running tracer's counters."""
+    from openset_rcnn_tpu_torch.utils import tracing
+
+    return tracing.snapshot()["counters"]
 
 
 def reset_launches():
-    for fn, attr in counted().values():
-        setattr(fn, attr, 0)
+    """Count from 0: tracing on, with a new tracer."""
+    from openset_rcnn_tpu_torch.utils import tracing
+
+    tracing.enable()
 
 
 def read_launches():
-    return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
+    """{kernel: launches} since ``reset_launches``; tracing off again."""
+    from openset_rcnn_tpu_torch.utils import tracing
+
+    found = counters()
+    tracing.disable()
+    return {name: found.get(counter, 0) for name, counter in COUNTED.items()}
 
 
 PREDICT_KINDS = ("predict.eager", "predict.graph.capture", "predict.graph.replay")
@@ -539,19 +546,14 @@ REPLAYED = {"roi_align_fwd": "roi_align_fwd_kernel", "nms_keep": "nms_walk_kerne
 @contextlib.contextmanager
 def predict_calls():
     """{kind: calls} of ``Predictor.__call__`` in the block, by the tracer's
-    counters (tracing is on inside it; filled when it exits). A replay calls
-    no kernel wrapper, so the wrappers' launch counts cover the eager and
-    the capturing calls only."""
-    from openset_rcnn_tpu_torch.utils import tracing
-
+    counters (filled when it exits; inside ``reset_launches`` ..
+    ``read_launches``). A replay calls no kernel wrapper, so the wrappers'
+    launch counts cover the eager and the capturing calls only."""
+    before = counters()
     calls = {}
-    tracing.enable()
-    try:
-        yield calls
-        counters = tracing.snapshot()["counters"]
-        calls.update({kind: counters.get(kind, 0) for kind in PREDICT_KINDS})
-    finally:
-        tracing.disable()
+    yield calls
+    after = counters()
+    calls.update({kind: after.get(kind, 0) - before.get(kind, 0) for kind in PREDICT_KINDS})
 
 
 def wrapper_calls(calls):
@@ -563,7 +565,7 @@ def replayed_launches(torch, fn, reps):
     """{counted name: launches} of reps calls of fn() by the device trace
     (``device_events``): the launches of graph replays, which no wrapper
     counts. 0 for the wrappers a serving call does not run."""
-    out = {name: 0 for name in counted()}
+    out = {name: 0 for name in COUNTED}
     for _ in range(3):  # the profiler now and then loses a window's launches: profile again
         events = device_events(torch, fn, reps)
         out.update({name: sum(n for key, _, n in events if kernel in key) for name, kernel in REPLAYED.items()})
@@ -638,7 +640,7 @@ def phase_serve(torch, dev, cfg, label):
     # replays the graphs captured in the warm-up, calling no kernel wrapper
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    calls = dict(predictor.counts)
+    calls = {kind: counters().get(kind, 0) for kind in PREDICT_KINDS}
     events = [torch.cuda.Event(enable_timing=True) for _ in range(SERVE_BATCHES + 1)]
     wall = time.perf_counter()
     events[0].record()
@@ -647,8 +649,8 @@ def phase_serve(torch, dev, cfg, label):
         events[i + 1].record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - wall) * 1e3 / SERVE_BATCHES
+    calls = {kind: counters().get(kind, 0) - n for kind, n in calls.items()}
     wrappers = read_launches()
-    calls = {kind: predictor.counts[kind] - n for kind, n in calls.items()}
     check(calls == {**dict.fromkeys(PREDICT_KINDS, 0), "predict.graph.replay": SERVE_BATCHES},
           f"{label}: the timed batches' calls {calls}, expected {SERVE_BATCHES} replays")
     check(wrappers == {name: 0 for name in wrappers}, f"{label}: a replay launched through a wrapper {wrappers}")
@@ -846,16 +848,14 @@ def phase_launch_floor(torch, dev):
     """An empty kernel (csrc/launch_floor.cu): its time per launch back to
     back through ctypes (CUDA events) and on the device (profiler), at one
     block and at a grid of 4 blocks per SM x 256 threads (K3's at B=16)."""
-    import ctypes
+    from openset_rcnn_tpu_torch import _native
 
-    from openset_rcnn_tpu_torch.ops import _build
-
-    lib = _build.load("launch_floor", {"empty_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+    lib = _native.load("launch_floor")
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for label, blocks, threads in (("1x32", 1, 32), (f"{4 * sms}x256", 4 * sms, 256)):
-        run = lambda: _build.check(lib, "empty_launch", lib.empty_launch(blocks, threads, stream))
+        run = lambda: _native.check(lib, "empty_launch", lib.empty_launch(blocks, threads, stream))
         ms = time_ms(torch, run, 200)
         dev_ms = device_ms(torch, run, 200, ("empty_kernel",))["empty_kernel"]
         check(dev_ms > 0, "launch floor: the profiler saw no empty kernel")
@@ -1605,6 +1605,7 @@ def in_memory_transform(cfg, pixels):
 def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
     """The evaluation path (see the module docstring, phase 13)."""
     import numpy as np
+    from openset_rcnn_tpu_torch import _native
     from openset_rcnn_tpu_torch.data import EvalLoader, device_prefetch
     from openset_rcnn_tpu_torch.engine.train_loop import do_test, get_evaluator
     from openset_rcnn_tpu_torch.evaluation import evalcore_binding
@@ -1626,7 +1627,7 @@ def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
     check(all(m.input_hw == m.original_hw for _, m in batches), "eval: an image was resized")
     print(f"eval: {len(records)} records made and batched in {time.perf_counter() - t0:.1f} s; batches "
           f"(shape, real images) {shapes}; native evalcore built and loaded: {evalcore_binding.available()} "
-          f"({evalcore_binding.library_path()})", flush=True)
+          f"({_native.library_path('evalcore')})", flush=True)
 
     # the main path, through the user's entry point: counts at 0 just before, read just after
     reset_launches()
@@ -3000,7 +3001,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
-    from openset_rcnn_tpu_torch.ops import _build
+    from openset_rcnn_tpu_torch import _native
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -3022,7 +3023,7 @@ def main():
         print("process-wide numerics flags, left at PyTorch's defaults: " + json.dumps(numerics_flags()), flush=True)
     dev = torch.device("cuda", 0)
 
-    seconds, logs = _build.build()
+    seconds, logs = _native.build()
     print(f"build: {seconds:.1f} s for {', '.join(logs) or 'nothing (already built)'}", flush=True)
     for name, log in logs.items():
         kernel = ""

@@ -1,7 +1,7 @@
 // Bilinear resize of a uint8 3-channel image, bitwise equal to
 // PIL.Image.resize(size, Image.BILINEAR), written straight into a padded
 // buffer. Host code with a plain C interface, built with the host compiler
-// by ops/_build.py and called through ctypes by data/resize_native.py.
+// by _native.py and called through ctypes by data/resize_native.py.
 //
 // Pillow's resample (libImaging/Resample.c) is exact integer arithmetic, so
 // any evaluation order of its sums gives its bytes:

@@ -2,7 +2,7 @@
 // grid's per-bin axis tables, shared by csrc/roi_align_fwd.cu (K1's adaptive
 // mode: axis_table) and csrc/roi_align_bwd.cu (K2: every mode's geometry;
 // the f32 adaptive mode sums axis_walk's weights per cell, which are the
-// tables' weights). ops/_build.py hashes this header into both libraries'
+// tables' weights). _native.py hashes this header into both libraries'
 // names, so an edit rebuilds both.
 //
 // The adaptive grid (TPU.ROI_SAMPLING_RATIO -1, the gather path's,

@@ -2,45 +2,27 @@
 ``PIL.Image.resize(..., Image.BILINEAR)`` for uint8 3-channel images, in
 one thread, written straight into a zeroed pad.
 
-``ops/_build.py`` builds it with the host compiler on first use. Without a
+``_native.py`` builds it with the host compiler on first use. Without a
 compiler, ``library()`` is None and callers keep PIL; a compiler that fails
 raises with its output.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
-_SIGNATURE = {
-    "resize_bilinear_u8c3": [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-    ],
-}
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
+from .. import _native
 
 
 def library() -> Optional[ctypes.CDLL]:
     """The library, built on the first call (one thread builds, the loader's
     others wait); None where no host compiler is found."""
-    global _lib, _tried
-    if not _tried:
-        with _lock:
-            if not _tried:
-                from ..ops import _build
-
-                try:
-                    _lib = _build.load("resize_bilinear", _SIGNATURE)
-                except _build.CompilerMissing:
-                    _lib = None
-                _tried = True
-    return _lib
+    try:
+        return _native.load("resize_bilinear")
+    except _native.CompilerMissing:
+        return None
 
 
 def resize(img: np.ndarray, nh: int, nw: int, pad_hw: Optional[Tuple[int, int]] = None,

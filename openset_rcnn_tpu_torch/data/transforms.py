@@ -17,7 +17,7 @@ neither; the image is read by one overridable method,
 ``DetectionTransform`` has it write the resized, flipped image straight into
 the bucket, zeroing only the margins. PIL runs where the native library cannot be built.
 Each resize with ``interp="pil"`` counts ``data.resize.native`` or
-``data.resize.pil`` (``resize_counts``, and the tracer's counters).
+``data.resize.pil`` in the tracer's counters.
 """
 from __future__ import annotations
 
@@ -28,14 +28,6 @@ import numpy as np
 
 from ..utils import tracing
 from . import resize_native
-
-#: Resizes by route since import, tracing on or off.
-resize_counts = {"data.resize.native": 0, "data.resize.pil": 0}
-
-
-def _counted(route: str) -> None:
-    resize_counts[route] += 1
-    tracing.count(route)
 
 
 @dataclass
@@ -90,9 +82,9 @@ def resize_image(img: np.ndarray, nh: int, nw: int, interp: str) -> np.ndarray:
     if interp == "pil":
         out = resize_native.resize(img, nh, nw)
         if out is not None:
-            _counted("data.resize.native")
+            tracing.count("data.resize.native")
             return out
-        _counted("data.resize.pil")
+        tracing.count("data.resize.pil")
         from PIL import Image
 
         return np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
@@ -179,7 +171,7 @@ class DetectionTransform:
             # resized and flipped straight into the bucket, margins zeroed
             padded = resize_native.resize(img, nh, nw, (bh, bw), mirror=flip)
             if padded is not None:
-                _counted("data.resize.native")
+                tracing.count("data.resize.native")
         if padded is None:
             img = resize_image(img, nh, nw, self.interp)
             if flip:

@@ -3,115 +3,20 @@
 Copy of ``openset_rcnn_tpu/evaluation/evalcore_binding.py``, kept in the port so
 that it imports nothing of the JAX package.
 
-It builds the unchanged ``native/evalcore.cpp`` with ``g++`` (the flags of
-``native/Makefile``) on first use into ``openset_rcnn_tpu_torch/_build/``,
-under a name that carries a hash of the source and flags, and never writes
-into ``native/``; callers fall back to numpy when it cannot be built.
+``_native.py`` builds the unchanged ``native/evalcore.cpp`` with the host
+compiler (the flags of ``native/Makefile``) on first use into
+``openset_rcnn_tpu_torch/_build/``, and never writes into ``native/``.
+Without a compiler the wrappers raise ``CompilerMissing`` and callers fall
+back to numpy; a compiler that fails raises with its output.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
-_CPP = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "native", "evalcore.cpp"))
-_BUILD_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "_build"))
-_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")  # native/Makefile's
-
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
-
-
-def library_path() -> Optional[str]:
-    """Where the library of the current source and flags lives (None without the source)."""
-    if not os.path.exists(_CPP):
-        return None
-    with open(_CPP, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_CXXFLAGS).encode()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"libevalcore-{digest}.so")
-
-
-def _build(so_path: str) -> bool:
-    """Compile into a temporary name and rename, so that concurrent builders
-    never load a half-written library."""
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        return False
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    try:
-        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, _CPP], check=True, capture_output=True, timeout=120)
-        os.replace(tmp, so_path)
-    except (subprocess.SubprocessError, OSError):
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        return False
-    return True
-
-
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    so_path = library_path()
-    if so_path is None or (not os.path.exists(so_path) and not _build(so_path)):
-        return None
-    try:
-        lib = ctypes.CDLL(so_path)
-    except OSError:
-        return None
-
-    lib.greedy_match.argtypes = [
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(ctypes.c_uint8),
-    ]
-    lib.greedy_match.restype = None
-    lib.nms_sorted.argtypes = [
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.c_int64,
-        ctypes.c_double,
-        ctypes.POINTER(ctypes.c_uint8),
-    ]
-    lib.nms_sorted.restype = ctypes.c_int64
-    if hasattr(lib, "match_category"):
-        P = ctypes.POINTER
-        lib.match_category.argtypes = [
-            P(ctypes.c_double),  # ious
-            P(ctypes.c_double),  # d_area
-            P(ctypes.c_double),  # g_area
-            P(ctypes.c_int32),   # g_crowd
-            P(ctypes.c_double),  # area_lo
-            P(ctypes.c_double),  # area_hi
-            ctypes.c_int64,      # A
-            P(ctypes.c_double),  # iou_thrs
-            ctypes.c_int64,      # T
-            P(ctypes.c_int64),   # D
-            P(ctypes.c_int64),   # G
-            P(ctypes.c_int64),   # ioff
-            P(ctypes.c_int64),   # goff
-            P(ctypes.c_int64),   # doff
-            ctypes.c_int64,      # n_img
-            ctypes.c_int64,      # sum_d
-            P(ctypes.c_uint8),   # out matched
-            P(ctypes.c_uint8),   # out ignore
-            P(ctypes.c_int32),   # out n_gt
-        ]
-        lib.match_category.restype = None
-    _lib = lib
-    return _lib
+from .. import _native
 
 
 def match_category_native(
@@ -130,9 +35,7 @@ def match_category_native(
     n_gt (A, n_img) int32). Group i's detections occupy columns
     [doff[i], doff[i]+D[i]) where doff = cumsum-exclusive of D.
     """
-    lib = _load()
-    if lib is None or not hasattr(lib, "match_category"):
-        raise RuntimeError("evalcore match_category not available")
+    lib = _native.load("evalcore")
     P = ctypes.POINTER
     D = np.ascontiguousarray(D, np.int64)
     G = np.ascontiguousarray(G, np.int64)
@@ -181,7 +84,13 @@ def match_category_native(
 
 
 def available() -> bool:
-    return _load() is not None
+    """Whether the library loads: False without a compiler; a compiler that
+    fails raises with its output."""
+    try:
+        _native.load("evalcore")
+    except _native.CompilerMissing:
+        return False
+    return True
 
 
 def greedy_match_native(
@@ -190,9 +99,7 @@ def greedy_match_native(
     iscrowd: np.ndarray,
     iou_thrs: np.ndarray,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("evalcore not available")
+    lib = _native.load("evalcore")
     D, G = ious.shape
     T = len(iou_thrs)
     ious = np.ascontiguousarray(ious, np.float64)
@@ -217,9 +124,7 @@ def greedy_match_native(
 
 def nms_native(boxes_sorted: np.ndarray, thresh: float) -> np.ndarray:
     """Keep mask over score-sorted xyxy boxes."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("evalcore not available")
+    lib = _native.load("evalcore")
     boxes = np.ascontiguousarray(boxes_sorted, np.float64)
     keep = np.zeros(len(boxes), np.uint8)
     lib.nms_sorted(

@@ -132,10 +132,10 @@ class Predictor(_OnDevice):
     Graphs read the parameters where they lie, so weights loaded in place
     (``load_state_dict``) are used by the next replay; parameters or
     buffers that move drop every graph. ``post_cfg`` is read at capture.
-    ``counts`` holds the calls of each kind: "predict.eager",
+    The tracer counts the calls of each kind: "predict.eager",
     "predict.graph.capture", "predict.graph.replay". A replay runs the
     kernels its capture recorded without calling their wrappers, so the
-    wrappers' launch counters count the eager and the capturing calls only.
+    ``kernel.*`` counters count the eager and the capturing calls only.
     """
 
     def __init__(self, cfg, device: Optional[Union[str, torch.device]] = None,
@@ -147,7 +147,6 @@ class Predictor(_OnDevice):
 
             post_cfg = PostprocessConfig.from_cfg(cfg, cfg.OPENDET_BENCHMARK, class_id_table(cfg))
         self.post_cfg = post_cfg
-        self.counts = {"predict.eager": 0, "predict.graph.capture": 0, "predict.graph.replay": 0}
         self._graphs: Dict[tuple, _StageGraphs] = {}
         self._seen: set = set()  # shapes run once eagerly
         # every module's parameters and buffers by name, read for their addresses on each call
@@ -181,7 +180,6 @@ class Predictor(_OnDevice):
                 out = self.cascade(self.raw(images, image_hw, mark))
                 if mark:
                     mark("cascade")
-        self.counts[kind] += 1
         tracing.count(kind)
         return out
 

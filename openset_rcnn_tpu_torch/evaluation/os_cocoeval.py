@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .._native import CompilerMissing
+
 # COCO defaults
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -83,11 +85,11 @@ def greedy_match(
         from .evalcore_binding import greedy_match_native
 
         return greedy_match_native(ious, gt_ignore, iscrowd, iou_thrs)
-    except (ImportError, OSError, RuntimeError):
-        # expected: extension not built / toolchain absent -> numpy fallback
+    except CompilerMissing:  # expected: no compiler here -> numpy fallback
         pass
     except Exception:
-        # unexpected (layout/binding bug): still fall back, but say so once
+        # unexpected (a failed build, a binding bug): still fall back, but say
+        # so once, with the compiler's output or the traceback,
         # instead of silently degrading every eval to the slower path
         global _GREEDY_NATIVE_WARNED
         if not _GREEDY_NATIVE_WARNED:
@@ -227,11 +229,11 @@ def _match_groups_all_areas(pres, iou_thrs, area_ranges=_AREA_RANGES_ARR):
         return match_category_native(
             ious_flat, d_area, g_area, g_crowd, D, G, area_ranges, iou_thrs
         )
-    except (ImportError, OSError, RuntimeError):
-        # expected: extension not built / toolchain absent -> numpy fallback
+    except CompilerMissing:  # expected: no compiler here -> numpy fallback
         pass
     except Exception:
-        # unexpected (layout/binding bug): still fall back, but say so once
+        # unexpected (a failed build, a binding bug): still fall back, but say
+        # so once, with the compiler's output or the traceback,
         # instead of silently degrading every eval to the slower path
         global _NATIVE_WARNED
         if not _NATIVE_WARNED:

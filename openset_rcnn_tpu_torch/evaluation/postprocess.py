@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .._native import CompilerMissing
+
 _NMS_NATIVE_WARNED = False
 
 
@@ -49,11 +51,11 @@ def numpy_nms(boxes: np.ndarray, scores: np.ndarray, thresh: float) -> np.ndarra
 
             keep_mask = nms_native(boxes[order], thresh)
             return order[keep_mask]
-        except (ImportError, OSError, RuntimeError):
-            # expected: extension not built / toolchain absent -> numpy fallback
+        except CompilerMissing:  # expected: no compiler here -> numpy fallback
             pass
         except Exception:
-            # unexpected (layout/binding bug): still fall back, but say so once
+            # unexpected (a failed build, a binding bug): still fall back, but say
+            # so once, with the compiler's output or the traceback,
             # instead of silently degrading every host-cascade NMS to the
             # O(N^2) numpy loop (mirrors os_cocoeval.greedy_match dispatch)
             global _NMS_NATIVE_WARNED

@@ -23,12 +23,12 @@ kernel's outputs equal the plain version's exactly.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from . import _build
+from .. import _native
+from ..utils import tracing
 from .boxes import pairwise_iou
 
 MAX_GT = 1024  # csrc/iou_match.cu kMaxGt: the GT rows one block stages in shared memory
@@ -53,15 +53,10 @@ def iou_match_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: tor
     return IouMatch(max_iou, matched_idx.to(torch.int32), tie.any(dim=1), boxes)
 
 
-_SIGNATURE = {
-    "iou_match": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
-}
-
-
 def iou_match(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor) -> IouMatch:
     """See the module docstring. CPU tensors take the plain version; CUDA
-    tensors launch the kernel's two passes (counted as two launches), the
-    call's only device operations."""
+    tensors launch the kernel's two passes, the call's only device
+    operations, counted by the tracer as two ``kernel.iou_match``."""
     if anchors.device.type == "cpu":
         return iou_match_plain(anchors, gt_boxes, gt_valid)
     if anchors.device.type != "cuda":
@@ -92,15 +87,12 @@ def iou_match(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Ten
         return out
     # each block's per-GT maxima; the kernels write and read them, nothing is filled
     partial = torch.empty((B, -(-R // CHUNK), G), dtype=torch.float32, device=dev)
-    lib = _build.load("iou_match", _SIGNATURE)
+    lib = _native.load("iou_match")
     with torch.cuda.device(dev):
         code = lib.iou_match(
             anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid.data_ptr(), B, G, R,
             partial.data_ptr(), *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, "iou_match", code)
-    iou_match.launches += 2
+    _native.check(lib, "iou_match", code)
+    tracing.count("kernel.iou_match", 2)
     return out
-
-
-iou_match.launches = 0  # kernel launches since the last reset

@@ -18,12 +18,12 @@ keep mask in sorted order; nothing is filtered dynamically.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, NamedTuple
 
 import torch
 
-from . import _build
+from .. import _native
+from ..utils import tracing
 
 KeepFn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
 
@@ -61,13 +61,6 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> t
     return keep
 
 
-_SIGNATURE = {
-    "nms_keep": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
-    "nms_max_boxes": [],
-}
-
-
 # K4 as a PyTorch operator, ``torch.ops.openset_rcnn.nms_keep``, registered as
 # ops/roi_align.py registers K1 (see there): the plain version for CPU
 # tensors, the launch code for CUDA tensors, shapes only for tracing.
@@ -87,7 +80,7 @@ def _nms_keep_cuda(boxes, valid, thresh):
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
     if B * N == 0:
         return keep
-    lib = _build.load("nms_keep", _SIGNATURE)
+    lib = _native.load("nms_keep")
     if N > lib.nms_max_boxes():
         raise ValueError(f"the kernel takes at most {lib.nms_max_boxes()} boxes per image, got {N}")
     nw = -(-N // 64)  # the suppression mask's 64-bit words per row; the kernel writes what it reads
@@ -97,8 +90,8 @@ def _nms_keep_cuda(boxes, valid, thresh):
             boxes.data_ptr(), valid.data_ptr(), B, N, float(thresh), mask.data_ptr(), keep.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, "nms_keep", code)
-    nms_keep.launches += 1
+    _native.check(lib, "nms_keep", code)
+    tracing.count("kernel.nms_keep")
     return keep
 
 
@@ -120,18 +113,15 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.T
     It calls the custom operator ``openset_rcnn::nms_keep``, so eager code
     and an exported program take one route: CPU tensors take the plain
     version; CUDA tensors launch the kernel's two passes (the IoU bitmask,
-    then the walk). ``nms_keep.launches`` counts calls that launched it,
-    both passes together (the operator's CUDA implementation counts them, so
-    a loaded exported program counts too). Tensors on another device are
-    refused (the operator itself also takes meta and fake tensors, for
-    tracing).
+    then the walk), counted by the tracer as ``kernel.nms_keep`` once a
+    call, both passes together (the operator's CUDA implementation counts
+    them, so a loaded exported program counts too). Tensors on another
+    device are refused (the operator itself also takes meta and fake
+    tensors, for tracing).
     """
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_keep runs on CPU or CUDA tensors, not {boxes.device}")
     return nms_keep_op(boxes, valid, float(thresh))
-
-
-nms_keep.launches = 0  # calls that launched the kernel since the last reset
 
 
 def nms_mask(

@@ -62,12 +62,12 @@ layout, so a flatten of the last three dims matches its ``fc1``.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
 
-from . import _build
+from .. import _native
+from ..utils import tracing
 
 # RoIs per step of the plain version: 512 RoIs at the static 2x2 grid, the
 # budget of the JAX package's GATHER_CHUNK_BUDGET.
@@ -247,23 +247,6 @@ def _roi_chunks(boxes, levels, level_hw, strides, chunk: int):
         yield sl, flat_boxes[sl], image[sl] * sum(sizes) + offsets[lvl], inv_strides[lvl], hs[lvl], ws[lvl]
 
 
-# both entry points of csrc/roi_align_fwd.cu: one library, one signature table
-_SIGNATURE = {
-    "roi_align_fwd": [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 8
-    + [ctypes.c_float] * 4
-    + [ctypes.c_void_p, ctypes.c_void_p]
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p, ctypes.c_void_p],
-    "roi_align_window_fwd": [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 8
-    + [ctypes.c_float] * 4
-    + [ctypes.c_void_p, ctypes.c_void_p]
-    + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_void_p],
-}
-
-
 def _check_grid(P: int, S: int, adaptive: bool) -> None:
     """The kernels take a static grid with ``P * S <= 32``; K1 and K2's f32
     mode (``adaptive``) also the adaptive grid, on a lattice of ``P * 8 <=
@@ -300,7 +283,7 @@ def _check_cuda_inputs(feats, boxes, levels, strides, P, S, dtypes=(torch.bfloat
 
 def _launch_fwd(fn: str, feats, boxes, levels, strides, P, S, out, *dtype_flag):
     B, R = boxes.shape[:2]
-    lib = _build.load("roi_align_fwd", _SIGNATURE)
+    lib = _native.load("roi_align_fwd")
     hw = [d for f in feats for d in (f.shape[1], f.shape[2])]
     with torch.cuda.device(boxes.device):
         code = getattr(lib, fn)(
@@ -308,7 +291,7 @@ def _launch_fwd(fn: str, feats, boxes, levels, strides, P, S, out, *dtype_flag):
             boxes.data_ptr(), levels.data_ptr(), B * R, R, feats[0].shape[-1], P, S, *dtype_flag,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, fn, code)
+    _native.check(lib, fn, code)
 
 
 # K1 as a PyTorch operator, ``torch.ops.openset_rcnn.roi_align_fwd``: the plain
@@ -331,10 +314,7 @@ def _roi_align_cuda(feats, boxes, levels, strides, out_size, sampling_ratio):
     if B * R == 0:
         return out
     _launch_fwd("roi_align_fwd", feats, boxes, levels, strides, P, S, out)
-    if S == ADAPTIVE:
-        roi_align.adaptive_launches += 1
-    else:
-        roi_align.launches += 1
+    tracing.count("kernel.roi_align_fwd.adaptive" if S == ADAPTIVE else "kernel.roi_align_fwd")
     return out
 
 
@@ -365,19 +345,16 @@ def roi_align(
 
     It calls the custom operator ``openset_rcnn::roi_align_fwd``, so eager
     code and an exported program take one route: CPU tensors take the plain
-    version; CUDA tensors launch the kernel. ``roi_align.launches`` counts
-    the static grid's launches, ``roi_align.adaptive_launches`` the adaptive
-    grid's (the operator's CUDA implementation counts them, so a loaded
-    exported program counts too). Tensors on another device are refused
-    (the operator itself also takes meta and fake tensors, for tracing).
+    version; CUDA tensors launch the kernel, counted by the tracer as
+    ``kernel.roi_align_fwd`` on the static grid and
+    ``kernel.roi_align_fwd.adaptive`` on the adaptive one (the operator's
+    CUDA implementation counts them, so a loaded exported program counts
+    too). Tensors on another device are refused (the operator itself also
+    takes meta and fake tensors, for tracing).
     """
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align runs on CPU or CUDA tensors, not {boxes.device}")
     return roi_align_op(list(feats), boxes, levels, [int(s) for s in strides], int(out_size), int(sampling_ratio))
-
-
-roi_align.launches = 0  # kernel launches since the last reset, static grid
-roi_align.adaptive_launches = 0  # and adaptive grid
 
 
 def roi_align_window(
@@ -406,11 +383,8 @@ def roi_align_window(
         return out
     _launch_fwd("roi_align_window_fwd", feats, boxes, levels, strides, P, S, out,
                 int(feats[0].dtype == torch.bfloat16))
-    roi_align_window.launches += 1
+    tracing.count("kernel.roi_align_window")
     return out
-
-
-roi_align_window.launches = 0  # kernel launches since the last reset
 
 
 # ------------------------------------------- the adaptive grid's axis tables
@@ -602,22 +576,6 @@ def _roi_align_bwd_plain_bf16(grad, boxes, levels, level_hw, strides, P, S):
     return _split_levels(flat, B, level_hw)
 
 
-_SIGNATURE_BWD = {
-    "roi_align_bwd": [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 8
-    + [ctypes.c_float] * 4
-    + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "roi_align_bwd_bf16": [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 8
-    + [ctypes.c_float] * 4
-    + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-}
-
-
 def _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S):
     if len(level_hw) != NUM_LEVELS or len(strides) != NUM_LEVELS:
         raise ValueError(f"the kernel pools exactly {NUM_LEVELS} FPN levels, got {len(level_hw)}")
@@ -637,7 +595,7 @@ def _check_bwd_inputs(grad, boxes, levels, level_hw, strides, P, S):
 
 def _launch_bwd(fn, accs, grad, boxes, levels, level_hw, strides, P, S):
     B, R = boxes.shape[:2]
-    lib = _build.load("roi_align_bwd", _SIGNATURE_BWD)
+    lib = _native.load("roi_align_bwd")
     hw = [d for h, w in level_hw for d in (h, w)]
     with torch.cuda.device(boxes.device):
         code = getattr(lib, fn)(
@@ -645,7 +603,7 @@ def _launch_bwd(fn, accs, grad, boxes, levels, level_hw, strides, P, S):
             boxes.data_ptr(), levels.data_ptr(), grad.data_ptr(), B * R, R, grad.shape[-1], P, S,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, fn, code)
+    _native.check(lib, fn, code)
 
 
 def roi_align_bwd(
@@ -665,9 +623,9 @@ def roi_align_bwd(
     ``out_size * sampling_ratio`` at most 32, or the adaptive grid
     (``ADAPTIVE``) with ``out_size * 8`` at most 56.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``roi_align_bwd.launches`` counts the static grid's launches,
-    ``roi_align_bwd.adaptive_launches`` the adaptive grid's.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    counted by the tracer as ``kernel.roi_align_bwd`` on the static grid and
+    ``kernel.roi_align_bwd.adaptive`` on the adaptive one.
     """
     if boxes.device.type == "cpu":
         return roi_align_bwd_plain(grad, boxes, levels, level_hw, strides, out_size, sampling_ratio)
@@ -682,15 +640,8 @@ def roi_align_bwd(
     # the kernel writes every cell, zeros included
     accs = [torch.empty((B, h, w, C), dtype=torch.float32, device=boxes.device) for h, w in level_hw]
     _launch_bwd("roi_align_bwd", accs, grad, boxes, levels, level_hw, strides, P, S)
-    if S == ADAPTIVE:
-        roi_align_bwd.adaptive_launches += 1
-    else:
-        roi_align_bwd.launches += 1
+    tracing.count("kernel.roi_align_bwd.adaptive" if S == ADAPTIVE else "kernel.roi_align_bwd")
     return accs
-
-
-roi_align_bwd.launches = 0  # kernel launches since the last reset, static grid
-roi_align_bwd.adaptive_launches = 0  # and adaptive grid
 
 
 def roi_align_bwd_bf16(
@@ -727,11 +678,8 @@ def roi_align_bwd_bf16(
     # the kernel writes every cell, zeros included
     accs = [torch.empty((B, h, w, C), dtype=torch.bfloat16, device=boxes.device) for h, w in level_hw]
     _launch_bwd("roi_align_bwd_bf16", accs, grad, boxes, levels, level_hw, strides, P, S)
-    roi_align_bwd_bf16.launches += 1
+    tracing.count("kernel.roi_align_bwd_bf16")
     return accs
-
-
-roi_align_bwd_bf16.launches = 0  # kernel launches since the last reset
 
 
 class RoIAlignFunction(torch.autograd.Function):

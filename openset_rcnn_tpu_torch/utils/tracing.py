@@ -53,7 +53,12 @@ Counters: ``data.images`` (images transformed); ``data.resize.native``,
 one of the three per call: run eagerly, captured as CUDA graphs, replayed);
 ``swin.tokens``, ``swin.window_tokens`` (``models/swin.py``, per stage of
 an eager or capturing call: the tokens entering its attention blocks, and
-those padded to window multiples).
+those padded to window multiples); ``kernel.roi_align_fwd``,
+``kernel.roi_align_fwd.adaptive``, ``kernel.roi_align_window``,
+``kernel.roi_align_bwd``, ``kernel.roi_align_bwd.adaptive``,
+``kernel.roi_align_bwd_bf16``, ``kernel.nms_keep`` (one a call, both
+passes) and ``kernel.iou_match`` (two a call): the CUDA kernels' launches
+by their wrappers in ``ops/`` (a graph replay calls no wrapper).
 """
 from __future__ import annotations
 

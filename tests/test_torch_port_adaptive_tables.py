@@ -16,7 +16,7 @@ kernels rely on and to the references:
   rtol 1e-5;
 * the table backward against ``roi_align_bwd_plain(..., acc_dtype=float64)``
   within 1e-5 * max(1, max|want|), and against ``jax.vjp`` of the gather path;
-* ``_build.library_path`` hashes the headers a kernel source includes.
+* ``_native.library_path`` hashes the headers a kernel source includes.
 
 The CUDA kernels themselves run only on the card (``tests/test_torch_port_cuda.py``,
 ``chip_smoke.py``).
@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from openset_rcnn_tpu.ops import roi_align as jax_roi
-from openset_rcnn_tpu_torch.ops import _build
+from openset_rcnn_tpu_torch import _native
 from openset_rcnn_tpu_torch.ops import roi_align as port_roi
 
 STRIDES = (4, 8, 16, 32)
@@ -157,19 +157,19 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """An edited header rebuilds every library whose source includes it (a
     stale ``.so`` is never loaded); another library keeps its name."""
     csrc = tmp_path / "csrc"
-    shutil.copytree(_build.CSRC, csrc)
-    monkeypatch.setattr(_build, "CSRC", csrc)
+    shutil.copytree(_native.CSRC, csrc)
+    monkeypatch.setattr(_native, "CSRC", csrc)
     for name in ("roi_align_fwd", "roi_align_bwd"):
-        assert [p.name for p in _build.sources(name)] == [f"{name}.cu", "roi_align_adaptive.cuh"]
-    assert [p.name for p in _build.sources("nms_keep")] == ["nms_keep.cu"]
-    before = {name: _build.library_path(name) for name in _build.KERNELS}
+        assert [p.name for p in _native.sources(name)] == [f"{name}.cu", "roi_align_adaptive.cuh"]
+    assert [p.name for p in _native.sources("nms_keep")] == ["nms_keep.cu"]
+    before = {name: _native.library_path(name) for name in _native.KERNELS}
     header = csrc / "roi_align_adaptive.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: _build.library_path(name) for name in _build.KERNELS}
-    assert {name for name in _build.KERNELS if after[name] != before[name]} == {"roi_align_fwd", "roi_align_bwd"}
+    after = {name: _native.library_path(name) for name in _native.KERNELS}
+    assert {name for name in _native.KERNELS if after[name] != before[name]} == {"roi_align_fwd", "roi_align_bwd"}
     # a header included through another header counts too
     (csrc / "inner.cuh").write_text("// v1\n")
     header.write_text(header.read_text() + '#include "inner.cuh"\n')
-    first = _build.library_path("roi_align_bwd")
+    first = _native.library_path("roi_align_bwd")
     (csrc / "inner.cuh").write_text("// v2\n")
-    assert _build.library_path("roi_align_bwd") != first
+    assert _native.library_path("roi_align_bwd") != first

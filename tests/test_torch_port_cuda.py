@@ -8,6 +8,8 @@ These need an NVIDIA GPU and skip without one. On a machine with the card
 The plain versions themselves are held against the JAX package on the CPU
 (tests/test_torch_port_ops.py, tests/test_torch_port_train_ops.py).
 """
+import collections
+import contextlib
 import math
 
 import pytest
@@ -27,6 +29,7 @@ from openset_rcnn_tpu_torch.ops.roi_align import (
     roi_align_window,
     roi_align_window_plain,
 )
+from openset_rcnn_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
@@ -44,6 +47,20 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def counters():
+    """Run the block under a new tracer; the ``Counter`` it yields holds the
+    tracer's counters once the block has run (0 for a name not counted).
+    Tracing is off after it."""
+    out = collections.Counter()
+    tracing.enable()
+    try:
+        yield out
+        out.update(tracing.snapshot()["counters"])
+    finally:
+        tracing.disable()
 
 
 def roi_inputs(dev, B, R, C, hw=(256, 384), seed=0):
@@ -64,10 +81,10 @@ def roi_inputs(dev, B, R, C, hw=(256, 384), seed=0):
 def test_roi_align_kernel_matches_plain(dev, C):
     feats, boxes = roi_inputs(dev, 3, 301, C, seed=C)
     levels = assign_levels(boxes)
-    before = roi_align.launches
-    got = roi_align(feats, boxes, levels, STRIDES)
-    torch.cuda.synchronize()
-    assert roi_align.launches == before + 1
+    with counters() as n:
+        got = roi_align(feats, boxes, levels, STRIDES)
+        torch.cuda.synchronize()
+    assert n["kernel.roi_align_fwd"] == 1
     want = roi_align_plain(feats, boxes, levels, STRIDES)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
 
@@ -148,10 +165,10 @@ def test_roi_align_kernel_adaptive_matches_plain(dev, C):
     levels = assign_levels(boxes)
     counts = adaptive_counts(boxes, levels)
     assert float(counts.min()) == 1.0 and float(counts.max()) == 8.0
-    before, static = roi_align.adaptive_launches, roi_align.launches
-    got = roi_align(feats, boxes, levels, STRIDES, 7, -1)
-    torch.cuda.synchronize()
-    assert (roi_align.adaptive_launches, roi_align.launches) == (before + 1, static)
+    with counters() as n:
+        got = roi_align(feats, boxes, levels, STRIDES, 7, -1)
+        torch.cuda.synchronize()
+    assert (n["kernel.roi_align_fwd.adaptive"], n["kernel.roi_align_fwd"]) == (1, 0)
     torch.testing.assert_close(got, roi_align_plain(feats, boxes, levels, STRIDES, 7, -1), atol=2e-5, rtol=1e-5)
 
 
@@ -165,10 +182,10 @@ def test_roi_align_bwd_kernel_adaptive_matches_plain(dev, C):
     g = torch.Generator(device=dev).manual_seed(C)
     cot = torch.randn(2, 300, 7, 7, C, generator=g, device=dev)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
-    before, static = roi_align_bwd.adaptive_launches, roi_align_bwd.launches
-    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
-    torch.cuda.synchronize()
-    assert (roi_align_bwd.adaptive_launches, roi_align_bwd.launches) == (before + 1, static)
+    with counters() as n:
+        got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES, 7, -1)
+        torch.cuda.synchronize()
+    assert (n["kernel.roi_align_bwd.adaptive"], n["kernel.roi_align_bwd"]) == (1, 0)
     assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, 7, -1))
 
 
@@ -248,10 +265,10 @@ def nms_inputs(dev, B, N, seed=0):
 @pytest.mark.parametrize("thresh", [0.5, 0.7])
 def test_nms_kernel_matches_plain(dev, N, thresh):
     boxes, valid = nms_inputs(dev, 4, N, seed=N)
-    before = nms_keep.launches
-    got = nms_keep(boxes, valid, thresh)
-    torch.cuda.synchronize()
-    assert nms_keep.launches == before + 1
+    with counters() as n:
+        got = nms_keep(boxes, valid, thresh)
+        torch.cuda.synchronize()
+    assert n["kernel.nms_keep"] == 1
     assert torch.equal(got, nms_keep_plain(boxes, valid, thresh))
     assert not got[~valid].any()
 
@@ -262,10 +279,10 @@ def test_nms_kernel_matches_plain(dev, N, thresh):
 @pytest.mark.parametrize("N", [1, 63, 64, 65, 2047, 2048, 2049, 4100])
 def test_nms_kernel_word_and_lane_boundaries(dev, N):
     boxes, valid = nms_inputs(dev, 3, N, seed=N + 1)
-    before = nms_keep.launches
-    got = nms_keep(boxes, valid, 0.5)
-    torch.cuda.synchronize()
-    assert nms_keep.launches == before + 1
+    with counters() as n:
+        got = nms_keep(boxes, valid, 0.5)
+        torch.cuda.synchronize()
+    assert n["kernel.nms_keep"] == 1
     assert torch.equal(got, nms_keep_plain(boxes, valid, 0.5))
 
 
@@ -286,10 +303,10 @@ def test_nms_kernel_edge_cases(dev, case):
         g = torch.Generator(device=dev).manual_seed(18)
         cls = (torch.rand(valid.shape, generator=g, device=dev) * 20).floor()
         boxes = (boxes + (cls * (boxes.amax(dim=(1, 2)) + 1.0)[:, None])[..., None]).contiguous()
-    before = nms_keep.launches
-    got = nms_keep(boxes, valid, thresh)
-    torch.cuda.synchronize()
-    assert nms_keep.launches == before + 1
+    with counters() as n:
+        got = nms_keep(boxes, valid, thresh)
+        torch.cuda.synchronize()
+    assert n["kernel.nms_keep"] == 1
     want = nms_keep_plain(boxes, valid, thresh)
     assert torch.equal(got, want)
     if case == "all_invalid":
@@ -340,10 +357,10 @@ def iou_inputs(dev, B, G, R, seed=0):
 @pytest.mark.parametrize("B,G,R", [(1, 1, 1000), (2, 1, 4097), (3, 37, 20000), (4, 100, 93093)])
 def test_iou_match_kernel_matches_plain(dev, B, G, R):
     anchors, gt, valid = iou_inputs(dev, B, G, R, seed=G + R)
-    before = iou_match.launches
-    got = iou_match(anchors, gt, valid)
-    torch.cuda.synchronize()
-    assert iou_match.launches == before + 2
+    with counters() as n:
+        got = iou_match(anchors, gt, valid)
+        torch.cuda.synchronize()
+    assert n["kernel.iou_match"] == 2
     want = iou_match_plain(anchors, gt, valid)
     for name in want._fields:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
@@ -418,10 +435,10 @@ def assert_bwd_close(got, want, rtol=0.0):
 def test_roi_align_bwd_kernel_matches_plain(dev, C):
     feats, boxes, levels, cot = bwd_inputs(dev, 3, 301, C, seed=C)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
-    before = roi_align_bwd.launches
-    got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
-    torch.cuda.synchronize()
-    assert roi_align_bwd.launches == before + 1
+    with counters() as n:
+        got = roi_align_bwd(cot, boxes, levels, level_hw, STRIDES)
+        torch.cuda.synchronize()
+    assert n["kernel.roi_align_bwd"] == 1
     assert all(a.dtype == torch.float32 and a.shape == (3, h, w, C) for a, (h, w) in zip(got, level_hw))
     assert_bwd_close(got, roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES))
 
@@ -474,11 +491,11 @@ def test_roi_align_function_runs_both_kernels(dev):
     backward; no gradient for the boxes."""
     feats, boxes, levels, cot = bwd_inputs(dev, 2, 150, 64, seed=7)
     feats = [f.requires_grad_(True) for f in feats]
-    fwd, bwd = roi_align.launches, roi_align_bwd.launches
-    out = RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, torch.float32, *feats)
-    out.backward(cot)
-    torch.cuda.synchronize()
-    assert (roi_align.launches, roi_align_bwd.launches) == (fwd + 1, bwd + 1)
+    with counters() as n:
+        out = RoIAlignFunction.apply(boxes.requires_grad_(True), levels, STRIDES, 7, 2, torch.float32, *feats)
+        out.backward(cot)
+        torch.cuda.synchronize()
+    assert (n["kernel.roi_align_fwd"], n["kernel.roi_align_bwd"]) == (1, 1)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
     want = roi_align_bwd_plain(cot, boxes.detach(), levels, level_hw, STRIDES)
     assert all(f.grad.dtype == torch.bfloat16 for f in feats)
@@ -495,10 +512,10 @@ def test_roi_align_window_kernel_matches_plain(dev, C, dtype):
     feats, boxes = roi_inputs(dev, 3, 301, C, seed=C)
     feats = [f.to(dtype) for f in feats]
     assert bool((assign_levels_window_fit(boxes, STRIDES) != assign_levels(boxes)).any())
-    before = roi_align_window.launches
-    got = roi_align_window(feats, boxes, STRIDES)
-    torch.cuda.synchronize()
-    assert roi_align_window.launches == before + 1
+    with counters() as n:
+        got = roi_align_window(feats, boxes, STRIDES)
+        torch.cuda.synchronize()
+    assert n["kernel.roi_align_window"] == 1
     assert got.dtype == dtype and got.shape == (3, 301, 7, 7, C)
     want = roi_align_window_plain(feats, boxes, STRIDES)
     if dtype == torch.float32:
@@ -524,10 +541,10 @@ def test_roi_align_bwd_bf16_kernel_matches_plain(dev, C):
     (rtol 3e-2, atol 5e-2) of the f32 accumulators."""
     feats, boxes, levels, cot = bwd_inputs(dev, 3, 301, C, seed=C)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
-    before = roi_align_bwd_bf16.launches
-    got = roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES)
-    torch.cuda.synchronize()
-    assert roi_align_bwd_bf16.launches == before + 1
+    with counters() as n:
+        got = roi_align_bwd_bf16(cot, boxes, levels, level_hw, STRIDES)
+        torch.cuda.synchronize()
+    assert n["kernel.roi_align_bwd_bf16"] == 1
     assert all(a.dtype == torch.bfloat16 and a.shape == (3, h, w, C) for a, (h, w) in zip(got, level_hw))
     want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.bfloat16)
     scale = max(1.0, max(float(w.float().abs().max()) for w in want))
@@ -553,12 +570,11 @@ def test_roi_align_function_runs_the_bf16_backward(dev):
     the f32 kernel not at all."""
     feats, boxes, levels, cot = bwd_inputs(dev, 2, 150, 64, seed=8)
     feats = [f.requires_grad_(True) for f in feats]
-    counts = roi_align.launches, roi_align_bwd.launches, roi_align_bwd_bf16.launches
-    out = RoIAlignFunction.apply(boxes, levels, STRIDES, 7, 2, torch.bfloat16, *feats)
-    out.backward(cot)
-    torch.cuda.synchronize()
-    assert (roi_align.launches, roi_align_bwd.launches, roi_align_bwd_bf16.launches) == (
-        counts[0] + 1, counts[1], counts[2] + 1)
+    with counters() as n:
+        out = RoIAlignFunction.apply(boxes, levels, STRIDES, 7, 2, torch.bfloat16, *feats)
+        out.backward(cot)
+        torch.cuda.synchronize()
+    assert (n["kernel.roi_align_fwd"], n["kernel.roi_align_bwd"], n["kernel.roi_align_bwd_bf16"]) == (1, 0, 1)
     level_hw = [(f.shape[1], f.shape[2]) for f in feats]
     want = roi_align_bwd_plain(cot, boxes, levels, level_hw, STRIDES, acc_dtype=torch.bfloat16)
     scale = max(1.0, max(float(w.float().abs().max()) for w in want))
@@ -849,11 +865,11 @@ def test_roi_align_operator_is_bitwise_the_direct_launch(dev, ratio):
     feats, boxes = roi_inputs(dev, 2, 301, 256, seed=11)
     levels = assign_levels(boxes)
     direct = ops._roi_align_cuda(feats, boxes, levels, list(STRIDES), 7, ratio)
-    counts = roi_align.launches, roi_align.adaptive_launches
-    got = torch.ops.openset_rcnn.roi_align_fwd(feats, boxes, levels, list(STRIDES), 7, ratio)
-    torch.cuda.synchronize()
+    with counters() as n:
+        got = torch.ops.openset_rcnn.roi_align_fwd(feats, boxes, levels, list(STRIDES), 7, ratio)
+        torch.cuda.synchronize()
     assert torch.equal(got, direct)
-    assert (roi_align.launches, roi_align.adaptive_launches) == (counts[0] + (ratio == 2), counts[1] + (ratio == -1))
+    assert (n["kernel.roi_align_fwd"], n["kernel.roi_align_fwd.adaptive"]) == (ratio == 2, ratio == -1)
 
 
 def test_nms_operator_is_bitwise_the_direct_launch(dev):
@@ -864,10 +880,10 @@ def test_nms_operator_is_bitwise_the_direct_launch(dev):
     boxes = torch.cat([xy, xy + 10 + torch.rand(8, 2000, 2, generator=g, device=dev) * 80], -1).contiguous()
     valid = torch.rand(8, 2000, generator=g, device=dev) > 0.2
     direct = ops._nms_keep_cuda(boxes, valid, 0.5)
-    before = nms_keep.launches
-    got = torch.ops.openset_rcnn.nms_keep(boxes, valid, 0.5)
-    torch.cuda.synchronize()
-    assert torch.equal(got, direct) and nms_keep.launches == before + 1
+    with counters() as n:
+        got = torch.ops.openset_rcnn.nms_keep(boxes, valid, 0.5)
+        torch.cuda.synchronize()
+    assert torch.equal(got, direct) and n["kernel.nms_keep"] == 1
 
 
 def test_fake_implementations_give_shapes_without_launching(dev):
@@ -876,15 +892,14 @@ def test_fake_implementations_give_shapes_without_launching(dev):
     feats, boxes = roi_inputs(dev, 2, 33, 64, seed=13)
     levels = assign_levels(boxes)
     valid = torch.ones(2, 33, dtype=torch.bool, device=dev)
-    counts = roi_align.launches, roi_align.adaptive_launches, nms_keep.launches
-    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+    with counters() as n, FakeTensorMode(allow_non_fake_inputs=True) as mode:
         fake = [mode.from_tensor(f) for f in feats]
         out = torch.ops.openset_rcnn.roi_align_fwd(fake, mode.from_tensor(boxes), mode.from_tensor(levels),
                                                    list(STRIDES), 7, -1)
         keep = torch.ops.openset_rcnn.nms_keep(mode.from_tensor(boxes), mode.from_tensor(valid), 0.5)
     assert (tuple(out.shape), out.dtype, out.device) == ((2, 33, 7, 7, 64), torch.float32, boxes.device)
     assert (tuple(keep.shape), keep.dtype, keep.device) == ((2, 33), torch.bool, boxes.device)
-    assert (roi_align.launches, roi_align.adaptive_launches, nms_keep.launches) == counts
+    assert (n["kernel.roi_align_fwd"], n["kernel.roi_align_fwd.adaptive"], n["kernel.nms_keep"]) == (0, 0, 0)
 
 
 def test_exported_program_launches_both_kernels(dev, tmp_path):
@@ -905,11 +920,10 @@ def test_exported_program_launches_both_kernels(dev, tmp_path):
     g = torch.Generator().manual_seed(14)
     images = (torch.tensor(cfg.MODEL.PIXEL_MEAN) + torch.rand(2, 128, 160, 3, generator=g) * 60 - 30).to(dev)
     image_hw = torch.tensor([[128.0, 160.0], [100.0, 150.0]], device=dev)
-    before = roi_align.launches, nms_keep.launches
-    with torch.inference_mode(), entry_numerics():
+    with counters() as n, torch.inference_mode(), entry_numerics():
         boxes, scores, classes, valid, overflow = program(images, image_hw)
-    torch.cuda.synchronize()
-    assert (roi_align.launches, nms_keep.launches) == (before[0] + 1, before[1] + 2)
+        torch.cuda.synchronize()
+    assert (n["kernel.roi_align_fwd"], n["kernel.nms_keep"]) == (1, 2)
     live = Predictor(cfg, dev, seed=0)(images, image_hw)
     torch.testing.assert_close(boxes, live.boxes, rtol=1e-3, atol=1e-2)
     torch.testing.assert_close(scores, live.scores, rtol=1e-4, atol=2e-3)
@@ -931,9 +945,9 @@ def test_train_step_through_the_operator_is_bitwise_the_direct_launch(dev, monke
         cfg = config_file("openset_rcnn_R50_FPN_128k.yaml")
         cfg.SOLVER.WARMUP_ITERS = 0
         trainer = Trainer(cfg, seed=0)
-        before = roi_align.launches
-        trainer.step(small_trainer_batch(dev, cfg))
-        assert roi_align.launches == before + 1
+        with counters() as n:
+            trainer.step(small_trainer_batch(dev, cfg))
+        assert n["kernel.roi_align_fwd"] == 1
         params[route] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     differ = [n for n, p in params["operator"].items() if not torch.equal(p, params["direct"][n])]
     assert not differ, differ

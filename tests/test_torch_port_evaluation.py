@@ -18,6 +18,7 @@ from openset_rcnn_tpu.data.catalog import MetadataCatalog as JaxMeta
 from openset_rcnn_tpu.evaluation import coco_eval as jax_coco_eval, evalcore_binding as jax_eb
 from openset_rcnn_tpu.evaluation import os_cocoeval as jax_oc, postprocess as jax_pp, proposals as jax_props
 from openset_rcnn_tpu.evaluation import voc_eval as jax_voc
+from openset_rcnn_tpu_torch import _native
 from openset_rcnn_tpu_torch.data.catalog import MetadataCatalog as PortMeta
 from openset_rcnn_tpu_torch.evaluation import coco_eval as port_coco_eval, evalcore_binding as port_eb
 from openset_rcnn_tpu_torch.evaluation import os_cocoeval as port_oc, postprocess as port_pp, proposals as port_props
@@ -283,9 +284,9 @@ def test_proposal_ar_matches_jax(case):
 def test_numpy_nms_matches_jax(monkeypatch, native):
     if native:
         assert port_eb.available()
-    else:  # the numpy fallback of a build that failed
+    else:  # the numpy fallback where no compiler is found
         def missing(*args):
-            raise RuntimeError("evalcore not available")
+            raise _native.CompilerMissing("no host compiler")
 
         monkeypatch.setattr(port_eb, "nms_native", missing)
     rng = np.random.RandomState(6)
@@ -302,7 +303,7 @@ def test_numpy_nms_matches_jax(monkeypatch, native):
 
 def test_evalcore_binding_matches_jax():
     assert port_eb.available() and jax_eb.available()
-    assert os.path.dirname(port_eb.library_path()) == os.path.join(
+    assert os.path.dirname(_native.library_path("evalcore")) == os.path.join(
         os.path.dirname(os.path.dirname(port_eb.__file__)), "_build")
     rng = np.random.RandomState(7)
     for _ in range(10):

@@ -19,8 +19,6 @@ import torch
 from openset_rcnn_tpu_torch.config import get_default_cfg
 from openset_rcnn_tpu_torch.evaluation.inference import GRAPH_SHAPES, Predictor
 from openset_rcnn_tpu_torch.models.serving import ServeDetections
-from openset_rcnn_tpu_torch.ops.nms import nms_keep
-from openset_rcnn_tpu_torch.ops.roi_align import roi_align
 from openset_rcnn_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,6 +31,7 @@ CONFIGS = {
 STAGES = ["backbone", "rpn", "roi_align", "heads", "cascade"]
 SWIN_STAGES = ["backbone.res2", "backbone.res3", "backbone.res4", "backbone.res5"] + STAGES  # Swin's own first
 EAGER, CAPTURE, REPLAY = "predict.eager", "predict.graph.capture", "predict.graph.replay"
+LAUNCHES = ("kernel.roi_align_fwd", "kernel.nms_keep")  # K1's and K4's wrappers
 
 
 @pytest.fixture
@@ -43,10 +42,22 @@ def dev():
 
 
 @pytest.fixture(autouse=True)
-def tracer_off():
-    tracing.disable()
+def tracer():
+    """A new tracer for each test, whose counters it reads."""
+    tracing.enable()
     yield
     tracing.disable()
+
+
+def counted(*names):
+    """The running tracer's counts of ``names``."""
+    counters = tracing.snapshot()["counters"]
+    return tuple(counters.get(name, 0) for name in names)
+
+
+def calls():
+    """``Predictor.__call__``'s calls by kind since the tracer started."""
+    return dict(zip((EAGER, CAPTURE, REPLAY), counted(EAGER, CAPTURE, REPLAY)))
 
 
 def load_cfg(name):
@@ -106,16 +117,16 @@ def test_graphs_match_eager_bitwise(dev, config, batch, buckets, on_device, with
         for bucket in buckets:
             images, image_hw = inputs(batch, bucket, seed=10 * r + len(kept), device=dev if on_device else "cpu")
             marks = []
-            before = (roi_align.launches, nms_keep.launches)
+            before = counted(*LAUNCHES)
             out = p(images, image_hw, mark=marks.append if with_mark else None)
             launched = (1, 2) if r < 2 else (0, 0)
-            assert (roi_align.launches - before[0], nms_keep.launches - before[1]) == launched
+            assert tuple(a - b for a, b in zip(counted(*LAUNCHES), before)) == launched
             assert marks == ((SWIN_STAGES if config == "swin_t" else STAGES) if with_mark else [])
             want = eager(p, images, image_hw)
             assert_equal(out, want, f"round {r} bucket {bucket}")
             kept.append((out, clone(want)))
     n = len(buckets)
-    assert p.counts == {EAGER: n, CAPTURE: n, REPLAY: 2 * n}
+    assert calls() == {EAGER: n, CAPTURE: n, REPLAY: 2 * n}
     for i, (out, want) in enumerate(kept):
         assert_equal(out, want, f"call {i} after the later calls")
     assert any(bool(want.valid.any()) for _, want in kept)
@@ -134,13 +145,13 @@ def test_replays_launch_the_port_kernels(dev):
     for _ in range(2):
         p(images, image_hw)
     torch.cuda.synchronize()
-    before = (roi_align.launches, nms_keep.launches)
+    before = counted(*LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             p(images, image_hw)
         torch.cuda.synchronize()
-    assert (roi_align.launches, nms_keep.launches) == before
-    assert p.counts == {EAGER: 1, CAPTURE: 1, REPLAY: 3}
+    assert counted(*LAUNCHES) == before
+    assert calls() == {EAGER: 1, CAPTURE: 1, REPLAY: 3}
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels = ("roi_align_fwd_kernel", "nms_iou_mask_kernel", "nms_walk_kernel")
     assert {k: sum(e.count for e in events if k in e.key) for k in kernels} == dict(zip(kernels, (3, 6, 6)))
@@ -160,16 +171,16 @@ def test_weights_loaded_in_place_reach_the_graphs(dev):
     other = Predictor(cfg, dev, seed=1).model.state_dict()
     p.model.load_state_dict(other)
     got = p(images, image_hw)
-    assert p.counts == {EAGER: 1, CAPTURE: 1, REPLAY: 2}
+    assert calls() == {EAGER: 1, CAPTURE: 1, REPLAY: 2}
     assert_equal(got, eager(p, images, image_hw), "after load_state_dict")
     assert not torch.equal(got.scores, before.scores)
     p.model.load_state_dict({k: v.clone() for k, v in Predictor(cfg, dev, seed=2).model.state_dict().items()},
                             assign=True)
     for kind in (EAGER, CAPTURE, REPLAY):
-        counts = dict(p.counts)
+        counts = calls()
         got = p(images, image_hw)
         counts[kind] += 1
-        assert p.counts == counts
+        assert calls() == counts
         assert_equal(got, eager(p, images, image_hw), f"after assign, {kind}")
 
 
@@ -183,7 +194,7 @@ def test_shapes_past_the_bound_run_eagerly(dev):
         for i, bucket in enumerate(buckets):
             images, image_hw = inputs(1, bucket, seed=i)
             assert_equal(p(images, image_hw), eager(p, images, image_hw), f"bucket {bucket}")
-    assert p.counts == {EAGER: GRAPH_SHAPES + 3, CAPTURE: GRAPH_SHAPES, REPLAY: GRAPH_SHAPES}
+    assert calls() == {EAGER: GRAPH_SHAPES + 3, CAPTURE: GRAPH_SHAPES, REPLAY: GRAPH_SHAPES}
 
 
 @pytest.mark.cuda
@@ -195,11 +206,11 @@ def test_train_mode_runs_eagerly_on_the_card(dev):
     p.model.train()
     for _ in range(3):
         assert_equal(p(images, image_hw), eager(p, images, image_hw), "train mode")
-    assert p.counts == {EAGER: 3, CAPTURE: 0, REPLAY: 0}
+    assert calls() == {EAGER: 3, CAPTURE: 0, REPLAY: 0}
     p.model.eval()
     for _ in range(3):
         assert_equal(p(images, image_hw), eager(p, images, image_hw), "eval mode")
-    assert p.counts == {EAGER: 4, CAPTURE: 1, REPLAY: 1}
+    assert calls() == {EAGER: 4, CAPTURE: 1, REPLAY: 1}
 
 
 @pytest.fixture(scope="module")
@@ -210,14 +221,13 @@ def cpu_predictor():
 @pytest.mark.parametrize("train", [False, True])
 def test_cpu_calls_run_eagerly(cpu_predictor, train):
     """On the CPU, in eval or train mode: every call runs eagerly, counts
-    ``predict.eager`` on the Predictor and in the tracer, calls the marks
-    as before, and returns today's outputs (``raw`` then ``cascade``)."""
+    ``predict.eager`` in the tracer, calls the marks as before, and returns
+    today's outputs (``raw`` then ``cascade``)."""
     p = cpu_predictor
     p.model.train(train)
     try:
         images, image_hw = inputs(1, (64, 96), seed=1)
         want = eager(p, images, image_hw)
-        counts = dict(p.counts)
         tracing.enable()
         for _ in range(3):
             marks = []
@@ -225,6 +235,6 @@ def test_cpu_calls_run_eagerly(cpu_predictor, train):
             assert marks == STAGES
         snap = tracing.snapshot()
         assert snap["counters"] == {EAGER: 3}
-        assert p.counts == {EAGER: counts[EAGER] + 3, CAPTURE: 0, REPLAY: 0}
+        assert calls() == {EAGER: 3, CAPTURE: 0, REPLAY: 0}
     finally:
         p.model.eval()

@@ -267,7 +267,8 @@ def test_graphs_on_the_card(swin_b):
         counters = tracing.snapshot()["counters"]
     finally:
         tracing.disable()
-    assert p.counts == {"predict.eager": 1, "predict.graph.capture": 1, "predict.graph.replay": 2}
+    kinds = ("predict.eager", "predict.graph.capture", "predict.graph.replay")
+    assert {kind: counters.get(kind, 0) for kind in kinds} == dict(zip(kinds, (1, 1, 2)))
     tokens, padded = hand_counts(2, 256, 384, 7)
     # the eager and the capturing call, and the four eager ``raw`` calls
     assert counters["swin.tokens"] == 6 * tokens and counters["swin.window_tokens"] == 6 * padded

@@ -55,7 +55,7 @@ from openset_rcnn_tpu_torch.evaluation.inference import Predictor
 from openset_rcnn_tpu_torch.models import detector as port_det
 from openset_rcnn_tpu_torch.ops import nms, roi_align
 from openset_rcnn_tpu_torch.tools import convert_checkpoint, export_serving, predict
-from openset_rcnn_tpu_torch.utils import torch_weights, visualizer as port_viz
+from openset_rcnn_tpu_torch.utils import torch_weights, tracing, visualizer as port_viz
 from openset_rcnn_tpu_torch.utils.jax_params import state_dict_from_jax
 from tests.port_threads import share_cores  # noqa: F401 (autouse)
 from tests.test_e2e import CLASSES, make_cfg
@@ -296,12 +296,17 @@ def test_custom_ops_fake_shapes_and_cpu_route():
     xy = torch.rand((B, R, 2), generator=g) * 60
     boxes = torch.cat([xy, xy + 4 + torch.rand((B, R, 2), generator=g) * 30], -1)
     levels = roi_align.assign_levels(boxes)
-    for ratio in (2, roi_align.ADAPTIVE):
-        assert torch.equal(roi_align.roi_align(feats, boxes, levels, (4, 8, 16, 32), 7, ratio),
-                           roi_align.roi_align_plain(feats, boxes, levels, (4, 8, 16, 32), 7, ratio))
     valid = torch.rand((B, R), generator=g) > 0.2
-    assert torch.equal(nms.nms_keep(boxes, valid, 0.3), nms.nms_keep_plain(boxes, valid, 0.3))
-    assert roi_align.roi_align.launches == roi_align.roi_align.adaptive_launches == nms.nms_keep.launches == 0
+    tracing.enable()
+    try:
+        for ratio in (2, roi_align.ADAPTIVE):
+            assert torch.equal(roi_align.roi_align(feats, boxes, levels, (4, 8, 16, 32), 7, ratio),
+                               roi_align.roi_align_plain(feats, boxes, levels, (4, 8, 16, 32), 7, ratio))
+        assert torch.equal(nms.nms_keep(boxes, valid, 0.3), nms.nms_keep_plain(boxes, valid, 0.3))
+        counted = tracing.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert not [name for name in counted if name.startswith("kernel.")]  # no kernel launched
 
 
 def test_tools_raise_without_a_gpu_unless_asked_for_the_cpu(setting, monkeypatch):
