@@ -51,6 +51,10 @@ In order it
      two launches bitwise equal; on uniform boxes and on boxes clustered
      around 20 GT boxes per image (as the ROI sampler draws them), both
      timed; prints the accumulators' bytes;
+  8a. frozen_bn_act (FrozenBN, residual and ReLU in one pass): the 49 calls
+     of a bf16 ResNet-50 forward on one 832x1344 image, each bitwise its
+     plain version; one frame's calls timed as a CUDA graph on the kernel
+     and on the plain version, beside the bytes' bound;
   9. references: the serving path and one training step on the GPU against
      the same seeded model on the CPU (plain versions) on a 2x64x96 batch:
      f32 (configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml), bf16
@@ -511,7 +515,8 @@ def load_cfg(path=CONFIG, **tpu):
 COUNTED = {"roi_align_fwd": "kernel.roi_align_fwd", "roi_align_fwd_adaptive": "kernel.roi_align_fwd.adaptive",
            "roi_align_bwd": "kernel.roi_align_bwd", "roi_align_bwd_adaptive": "kernel.roi_align_bwd.adaptive",
            "roi_align_bwd_bf16": "kernel.roi_align_bwd_bf16", "iou_match": "kernel.iou_match",
-           "nms_keep": "kernel.nms_keep", "roi_align_window": "kernel.roi_align_window"}
+           "nms_keep": "kernel.nms_keep", "roi_align_window": "kernel.roi_align_window",
+           "frozen_bn_act": "kernel.frozen_bn"}
 
 
 def counters():
@@ -540,7 +545,8 @@ def read_launches():
 PREDICT_KINDS = ("predict.eager", "predict.graph.capture", "predict.graph.replay")
 # the kernel the device trace counts for each counted wrapper a serving call
 # runs (K4: its second pass, launched once a call)
-REPLAYED = {"roi_align_fwd": "roi_align_fwd_kernel", "nms_keep": "nms_walk_kernel"}
+REPLAYED = {"roi_align_fwd": "roi_align_fwd_kernel", "nms_keep": "nms_walk_kernel",
+            "frozen_bn_act": "frozen_bn_act_n"}
 
 
 @contextlib.contextmanager
@@ -561,16 +567,18 @@ def wrapper_calls(calls):
     return calls["predict.eager"] + calls["predict.graph.capture"]
 
 
-def replayed_launches(torch, fn, reps):
+def replayed_launches(torch, fn, reps, want):
     """{counted name: launches} of reps calls of fn() by the device trace
     (``device_events``): the launches of graph replays, which no wrapper
-    counts. 0 for the wrappers a serving call does not run."""
+    counts. 0 for the wrappers a serving call does not run. The profiler
+    now and then loses a window's launches: up to three windows, until one
+    reads ``want``."""
     out = {name: 0 for name in COUNTED}
-    for _ in range(3):  # the profiler now and then loses a window's launches: profile again
+    for _ in range(3):
         events = device_events(torch, fn, reps)
         out.update({name: sum(n for key, _, n in events if kernel in key) for name, kernel in REPLAYED.items()})
         mask_passes = sum(n for key, _, n in events if "nms_iou_mask_kernel" in key)
-        if out["nms_keep"] == mask_passes and all(out[name] >= reps for name in REPLAYED):
+        if out["nms_keep"] == mask_passes and out == want:
             break
     return out
 
@@ -655,9 +663,10 @@ def phase_serve(torch, dev, cfg, label):
           f"{label}: the timed batches' calls {calls}, expected {SERVE_BATCHES} replays")
     check(wrappers == {name: 0 for name in wrappers}, f"{label}: a replay launched through a wrapper {wrappers}")
     # the replays' launches, from the device trace of as many replays
-    launches = replayed_launches(torch, lambda: predictor(images, image_hw), SERVE_BATCHES)
-    want = {name: 0 for name in launches}
-    want.update(roi_align_fwd=SERVE_BATCHES, nms_keep=2 * SERVE_BATCHES)
+    want = {name: 0 for name in COUNTED}
+    want.update(roi_align_fwd=SERVE_BATCHES, nms_keep=2 * SERVE_BATCHES,
+                frozen_bn_act=trunk_bn_launches(cfg) * SERVE_BATCHES)
+    launches = replayed_launches(torch, lambda: predictor(images, image_hw), SERVE_BATCHES, want)
     check(launches == want, f"{label} replays' launches on the device {launches}, expected {want}")
     batch_ms = [events[i].elapsed_time(events[i + 1]) for i in range(SERVE_BATCHES)]
     ms = sum(batch_ms) / SERVE_BATCHES
@@ -1168,15 +1177,24 @@ def calibrate_frozen_bn(torch, model, images, image_hw):
     statistics a random trunk's activations grow by orders of magnitude
     through its fifty layers, and at the production config's learning rate
     (0.02, warm-up over 100 steps) the losses leave the finite range within
-    the phase's seven steps."""
+    the phase's seven steps. A FrozenBN's input is the output of the
+    convolution before it, read there: the trunk hands the buffers to its
+    FrozenBN operator and calls no FrozenBN module."""
     from openset_rcnn_tpu_torch.models.resnet import FrozenBN
 
-    def hook(bn, args):
-        x = args[0].float()
-        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
-        bn.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+    def hook_for(bn):
+        def hook(conv, args, out):
+            x = out.float()
+            bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+            bn.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+        return hook
 
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, FrozenBN)]
+    pairs = (("stem_conv", "stem_bn"), ("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+             ("shortcut", "shortcut_bn"))
+    handles = [getattr(m, conv).register_forward_hook(hook_for(getattr(m, bn))) for m in model.modules()
+               for conv, bn in pairs if isinstance(getattr(m, bn, None), FrozenBN)]
+    check(len(handles) == sum(isinstance(m, FrozenBN) for m in model.modules()),
+          "calibrate_frozen_bn: a FrozenBN without its convolution")
     with torch.no_grad():
         model.features(images, image_hw)
     for h in handles:
@@ -1228,7 +1246,8 @@ def phase_train(torch, dev, cfg, label, batch_size, calibrate=False):
     launches = read_launches()
     fwd, bwd = train_kernels(cfg)
     want = {name: 0 for name in launches}
-    want.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS})
+    want.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS,
+                 "frozen_bn_act": train_bn_launches(cfg) * TRAIN_STEPS})
     check(launches == want, f"{label} launches {launches}, expected {want}")
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
@@ -1342,7 +1361,8 @@ def phase_train_remat(torch, dev, cfg, train):
     launches = read_launches()
     fwd, bwd = train_kernels(cfg)
     expected = {name: 0 for name in launches}
-    expected.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS})
+    expected.update({fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "iou_match": 2 * TRAIN_STEPS,
+                     "frozen_bn_act": train_bn_launches(cfg) * TRAIN_STEPS})
     check(launches == expected, f"train_remat launches {launches}, expected {expected}")
     for m in history:
         for k, v in m.items():
@@ -1366,6 +1386,32 @@ def train_kernels(cfg):
     if cfg.TPU.ROI_SAMPLING_RATIO == ADAPTIVE:
         return "roi_align_fwd_adaptive", "roi_align_bwd_adaptive"
     return "roi_align_fwd", "roi_align_bwd_bf16" if cfg.TPU.ROI_ALIGN_BWD == "pallas_bf16" else "roi_align_bwd"
+
+
+def trunk_bn_launches(cfg):
+    """The FrozenBN kernel's launches in one trunk forward of ``cfg``: the
+    stem's and three a bottleneck block on a ResNet (49 on R50), none on
+    the transformer trunks."""
+    from openset_rcnn_tpu_torch.models.detector import RESNET
+    from openset_rcnn_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    if cfg.MODEL.BACKBONE.NAME != RESNET:
+        return 0
+    return 1 + 3 * sum(STAGE_BLOCKS[cfg.MODEL.RESNETS.DEPTH])
+
+
+def train_bn_launches(cfg):
+    """Those of one train step: the forward's; with ``TPU.REMAT`` also the
+    recomputed forward of every block above ``FREEZE_AT`` (the frozen
+    stages' blocks take and hold nothing that needs a gradient, so nothing
+    of theirs is recomputed)."""
+    from openset_rcnn_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    n = trunk_bn_launches(cfg)
+    if n and cfg.TPU.REMAT:
+        trained = STAGE_BLOCKS[cfg.MODEL.RESNETS.DEPTH][max(cfg.MODEL.BACKBONE.FREEZE_AT - 1, 0):]
+        n += 3 * sum(trained)
+    return n
 
 
 def repeat_step(torch, trainer, batch):
@@ -1445,6 +1491,75 @@ def phase_roi_align_window(torch, dev):
     want["roi_align_window"] = 1
     check(launches == want, f"roi_align_window path launches {launches}, expected {want}")
     return entry, launches
+
+
+def cuda_graph(torch, fn):
+    """fn() captured as a CUDA graph, after one call on a side stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def phase_frozen_bn(torch, dev):
+    """The FrozenBN kernel at the frame cell's shapes: the 49 calls of a bf16
+    ResNet-50 forward on one 832x1344 image (channels_last, seeded weights,
+    random statistics), recorded with their activations; each call's output
+    bitwise the plain version's; one frame's 49 calls timed as a CUDA graph
+    (as a Predictor replays them) on the kernel and on the plain version,
+    the kernel's device time by the profiler, beside the bytes' bound."""
+    from openset_rcnn_tpu_torch.models.resnet import FrozenBN, ResNet
+    from openset_rcnn_tpu_torch.ops import frozen_bn
+
+    model = ResNet(50, compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    for bn in (m for m in model.modules() if isinstance(m, FrozenBN)):
+        bn.scale.uniform_(0.2, 0.6, generator=g)
+        bn.bias.normal_(0, 0.5, generator=g)
+        bn.mean.normal_(0, 0.5, generator=g)
+        bn.var.uniform_(0.5, 4.0, generator=g)
+    model = model.to(dev, memory_format=torch.channels_last)
+    image = torch.randn(1, 3, *BUCKET, generator=g).to(dev).contiguous(memory_format=torch.channels_last)
+    op, plain = frozen_bn.frozen_bn_act_op, frozen_bn.frozen_bn_act_plain
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return op(*args)
+
+    frozen_bn.frozen_bn_act_op = recording
+    try:
+        with torch.no_grad():
+            model(image)
+    finally:
+        frozen_bn.frozen_bn_act_op = op
+    check(len(calls) == 49, f"frozen_bn_act: a ResNet-50 forward made {len(calls)} calls, expected 49")
+    n_bytes = 0
+    for args in calls:
+        x, r = args[0], args[6]
+        got, want = op(*args), plain(*args)
+        same = got.view(torch.int16) == want.view(torch.int16)
+        check(bool(same.all()) and got.stride() == x.stride(),
+              f"frozen_bn_act vs plain at {tuple(x.shape)}: {int((~same).sum())} of {same.numel()} differ")
+        n_bytes += x.numel() * x.element_size() * (3 if r is not None else 2)
+    frame_ms = {label: time_ms(torch, cuda_graph(torch, lambda: [fn(*a) for a in calls]).replay, 20)
+                for label, fn in (("kernel", op), ("plain", plain))}
+    launch_ms = device_ms(torch, lambda: [op(*a) for a in calls], 5, ("frozen_bn_act",))["frozen_bn_act"]
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"frozen_bn_act: R50 bf16 at {BUCKET[0]}x{BUCKET[1]}, batch 1, 49 calls a frame, bitwise the plain "
+          f"version; per frame (CUDA graph of the 49 calls): kernel {frame_ms['kernel']:.4f} ms (device time "
+          f"{49 * launch_ms:.4f} ms), plain {frame_ms['plain']:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+          f"{n_bytes / 1e9:.3f} GB)", flush=True)
+    return dict(name="frozen_bn_act", route="cuda", source="openset_rcnn_tpu_torch/csrc/frozen_bn_act.cu",
+                replaces="none: XLA fused FrozenBN's affine (openset_rcnn_tpu/models/resnet.py)",
+                max_abs_err=0.0, ms=frame_ms["kernel"], plain_ms=frame_ms["plain"], bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, device_ms=49 * launch_ms)
 
 
 def phase_roi_align_bwd_bf16(torch, dev):
@@ -1640,7 +1755,8 @@ def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
     want_calls = {"predict.eager": 2, "predict.graph.capture": 2, "predict.graph.replay": n_batches - 4}
     check(calls == want_calls, f"eval: Predictor's calls {calls}, expected {want_calls}")
     want = {name: 0 for name in launches}
-    want.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls))
+    want.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls),
+                frozen_bn_act=trunk_bn_launches(cfg) * wrapper_calls(calls))
     check(launches == want, f"eval launches {launches}, expected {want}")
     check(set(metrics) == set(voc_keys) and all(math.isfinite(v) for v in metrics.values()),
           f"eval (do_test, fused): metrics {metrics}, expected finite values of {voc_keys}")
@@ -1753,7 +1869,8 @@ def phase_eval(torch, dev, cfg, cfg32, serve_img_per_s):
 def phase_parity_eval(torch, dev, cfg):
     """do_test on the parity config (f32, gather levels, the adaptive grid,
     the host cascade) over the eval phase's records at full width: every
-    batch through K1's adaptive mode, no other kernel; img/s of the whole
+    batch through K1's adaptive mode and the trunk's FrozenBN kernel, no
+    other kernel; img/s of the whole
     call and of its inference_on_dataset loop alone (no model build)."""
     import numpy as np
     from openset_rcnn_tpu_torch.engine.train_loop import do_test
@@ -1786,7 +1903,7 @@ def phase_parity_eval(torch, dev, cfg):
     check(loop.get("images") == len(records), f"parity eval: the loop's timings {loop}")
     n_batches = sum(math.ceil(n / cfg.TPU.EVAL_BATCH_SIZE) for n in (EVAL_LANDSCAPE, EVAL_PORTRAIT))
     want = {name: 0 for name in launches}
-    want["roi_align_fwd_adaptive"] = n_batches
+    want.update(roi_align_fwd_adaptive=n_batches, frozen_bn_act=trunk_bn_launches(cfg) * n_batches)
     check(launches == want, f"parity eval launches {launches}, expected {want}")
     check(all(math.isfinite(v) for v in metrics.values()) and {"WI", "AOSE", "mAP"} <= set(metrics),
           f"parity eval: metrics {metrics}")
@@ -1933,7 +2050,7 @@ def do_train_run(torch, dev, step_alone_img_per_s, work):
         check([i for i, _, _ in first_run] == list(range(DO_TRAIN_ITERS)), "do_train: the first run's steps")
         check((out / "config.yaml").exists() and (out / "log.txt").stat().st_size > 0,
               "do_train: config.yaml, log.txt")
-        for name in ("roi_align_fwd", "roi_align_bwd_bf16", "iou_match", "nms_keep"):
+        for name in ("roi_align_fwd", "roi_align_bwd_bf16", "iou_match", "nms_keep", "frozen_bn_act"):
             check(launches[name] > 0, f"do_train: {name} was not launched ({launches})")
 
         # the timed run: no evals, a checkpoint only at its end
@@ -2090,7 +2207,7 @@ def phase_weights(torch, dev, work):
     want = from_state(images, image_hw)
     torch.cuda.synchronize()
     expected = {name: 0 for name in launches}
-    expected.update(roi_align_fwd=1, nms_keep=2)
+    expected.update(roi_align_fwd=1, nms_keep=2, frozen_bn_act=trunk_bn_launches(cfg))
     check(launches == expected, f"weights: Predictor launches {launches}, expected {expected}")
     for name in got._fields:
         check(torch.equal(getattr(got, name), getattr(want, name)), f"weights: Predictor {name} from .pth != from state")
@@ -2114,7 +2231,7 @@ def phase_weights(torch, dev, work):
         check(all(math.isfinite(float(v)) for v in metrics.values()), f"weights: non-finite {label} step metrics")
     fwd, bwd = train_kernels(cfg)
     expected = {name: 0 for name in launches}
-    expected.update({fwd: 1, bwd: 1, "iou_match": 2})
+    expected.update({fwd: 1, bwd: 1, "iou_match": 2, "frozen_bn_act": train_bn_launches(cfg)})
     check(step_launches["pkl"] == expected, f"weights: step launches {step_launches['pkl']}, expected {expected}")
     params_b = dict(b.model.named_parameters())
     differ = [n for n, p in a.model.named_parameters() if not torch.equal(p, params_b[n])]
@@ -2166,7 +2283,8 @@ def phase_predict(torch, dev, work, weights):
     want_calls = {"predict.eager": 1, "predict.graph.capture": 1, "predict.graph.replay": BATCH - 2}
     check(calls == want_calls, f"predict: Predictor's calls {calls}, expected {want_calls}")
     expected = {name: 0 for name in launches}
-    expected.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls))
+    expected.update(roi_align_fwd=wrapper_calls(calls), nms_keep=2 * wrapper_calls(calls),
+                    frozen_bn_act=trunk_bn_launches(load_cfg(CONFIG_BF16)) * wrapper_calls(calls))
     check(launches == expected, f"predict launches {launches}, expected {expected}")
     files = sorted(p.name for p in out.iterdir())
     check(files == sorted([f"img{i}.json" for i in range(BATCH)] + [f"img{i}_viz.jpg" for i in range(BATCH)]),
@@ -2259,7 +2377,7 @@ def phase_export(torch, dev, work, weights):
             torch.cuda.synchronize()
             launches = read_launches()
             expected = {name: 0 for name in launches}
-            expected.update(roi_align_fwd=1, nms_keep=2)
+            expected.update(roi_align_fwd=1, nms_keep=2, frozen_bn_act=trunk_bn_launches(cfg))
             check(launches == expected, f"{label}: the loaded program's launches {launches}, expected {expected}")
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 run()
@@ -3045,7 +3163,7 @@ def main():
     launch_floor = phase_launch_floor(torch, dev)
     paths = {}
     window, paths["window"] = phase_roi_align_window(torch, dev)
-    kernels += [phase_roi_align_bwd_bf16(torch, dev), window]
+    kernels += [phase_roi_align_bwd_bf16(torch, dev), window, phase_frozen_bn(torch, dev)]
     phase_reference(torch, dev, load_cfg(), "f32", bf16=False)
     phase_reference(torch, dev, load_cfg(CONFIG_BF16), "bf16", bf16=True)
     phase_reference(torch, dev, load_cfg(CONFIG_BF16, ROI_ALIGN_IMPL="pallas"), "bf16, ROI_ALIGN_IMPL pallas",
@@ -3088,10 +3206,11 @@ def main():
     # launches: from the path of this slice that runs the kernel (eval: K1,
     # K4; train: K2 f32, K3; train_bf16: K2 bf16; the adaptive modes of K1
     # and K2 f32: parity_eval and train_parity; K5, which no path of the
-    # model runs: its own call)
+    # model runs: its own call; FrozenBN's: eval)
     home = {"roi_align_fwd": "eval", "nms_keep": "eval", "roi_align_bwd": "train", "iou_match": "train",
             "roi_align_bwd_bf16": "train_bf16", "roi_align_window": "window",
-            "roi_align_fwd_adaptive": "parity_eval", "roi_align_bwd_adaptive": "train_parity"}
+            "roi_align_fwd_adaptive": "parity_eval", "roi_align_bwd_adaptive": "train_parity",
+            "frozen_bn_act": "eval"}
     for k in kernels:
         k["launches"] = paths[home[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: launches[k["name"]] for p, launches in paths.items()}

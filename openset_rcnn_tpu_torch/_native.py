@@ -42,7 +42,7 @@ from typing import Any, Dict, Iterable, NamedTuple, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep", "launch_floor")
+KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep", "frozen_bn_act", "launch_floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -75,6 +75,11 @@ LIBRARIES = {
     "iou_match": Library("iou_match.cu", NVCC_FLAGS, {"iou_match": (_i, [_p] * 3 + [_i] * 3 + [_p] * 6)}),
     "nms_keep": Library("nms_keep.cu", NVCC_FLAGS, {
         "nms_keep": (_i, [_p, _p, _i, _i, _f, _p, _p, _p]), "nms_max_boxes": (_i, []),
+    }),
+    # x, r, y, scale, bias, mean, var, eps, the residual's four buffers and eps, N, C, H * W, bf16,
+    # channels_last, residual form, relu, vectorized, stream
+    "frozen_bn_act": Library("frozen_bn_act.cu", NVCC_FLAGS, {
+        "frozen_bn_act": (_i, [_p] * 7 + [_f] + [_p] * 4 + [_f] + [ctypes.c_int64] * 3 + [_i] * 5 + [_p]),
     }),
     "launch_floor": Library("launch_floor.cu", NVCC_FLAGS, {"empty_launch": (_i, [_i, _i, _p])}),
     "resize_bilinear": Library("resize_bilinear.cpp", CXX_FLAGS, {

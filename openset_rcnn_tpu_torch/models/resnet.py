@@ -4,6 +4,9 @@ Port of ``openset_rcnn_tpu/models/resnet.py:26-138``. Module and buffer
 names follow the JAX parameter tree (``stem_conv``, ``res2_block0.conv1``,
 ``bn1.scale`` ...), so ``utils/jax_params.py`` maps one onto the other by
 name. Tensors are NCHW; on the GPU they live in ``channels_last`` memory.
+Each block's FrozenBN affines, its residual's add and its ReLUs run through
+the operator ``openset_rcnn::frozen_bn_act`` (``ops/frozen_bn.py``): one
+kernel launch a call on the GPU, the plain PyTorch composition on the CPU.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..ops import frozen_bn
 
 # Block counts per stage for each supported depth.
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -32,12 +37,7 @@ class FrozenBN(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.scale / torch.sqrt(self.var + self.eps)
-        b = self.bias - self.mean * w
-        # in x's dtype, as JAX's FrozenBN: f32 buffers would promote a bf16
-        # trunk back to f32
-        w, b = w.to(x.dtype), b.to(x.dtype)
-        return x * w[None, :, None, None] + b[None, :, None, None]
+        return frozen_bn.frozen_bn(x, self.scale, self.bias, self.mean, self.var, self.eps)
 
 
 class Conv2d(nn.Conv2d):
@@ -71,11 +71,11 @@ class BottleneckBlock(nn.Module):
             self.shortcut_bn = FrozenBN(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        sc = self.shortcut_bn(self.shortcut(x)) if self.has_shortcut else x
-        return F.relu(out + sc)
+        out = frozen_bn.frozen_bn_act(self.conv1(x), self.bn1)
+        out = frozen_bn.frozen_bn_act(self.conv2(out), self.bn2)
+        if self.has_shortcut:
+            return frozen_bn.frozen_bn_act(self.conv3(out), self.bn3, self.shortcut(x), self.shortcut_bn)
+        return frozen_bn.frozen_bn_act(self.conv3(out), self.bn3, x)
 
 
 class ResNet(nn.Module):
@@ -109,7 +109,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(self.compute_dtype)
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = frozen_bn.frozen_bn_act(self.stem_conv(x), self.stem_bn)
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         outputs = {}
         for stage, names in self.stages:

@@ -10,11 +10,12 @@ and the bucket's anchors (``TPU.TEST_BUCKET``) and takes a fixed batch:
 ``(images (B, H, W, 3) f32 raw BGR pixels padded to the bucket, image_hw
 (B, 2) f32)`` -> the ``ServeDetections`` fields as a flat tuple ``(boxes,
 scores, classes, valid, known_overflow)`` (``ServeDetections(*outputs)``
-names them). RoIAlign (K1) and the greedy NMS keep mask (K4) are the custom
-operators ``openset_rcnn::roi_align_fwd`` and ``openset_rcnn::nms_keep``,
-one node each in the graph, so the loaded program launches the CUDA kernels
-on the GPU (and runs their plain versions on the CPU), counted as eager
-code counts them. ``--platform`` picks the device the program is exported
+names them). RoIAlign (K1), the greedy NMS keep mask (K4) and the ResNet
+trunk's FrozenBN with its residual and ReLU are the custom operators
+``openset_rcnn::roi_align_fwd``, ``openset_rcnn::nms_keep`` and
+``openset_rcnn::frozen_bn_act``, one node a call in the graph, so the loaded
+program launches the CUDA kernels on the GPU (and runs their plain versions
+on the CPU), counted as eager code counts them. ``--platform`` picks the device the program is exported
 for (default: the GPU; without one the tool raises unless given ``cpu``).
 
 ``--split`` writes two chained programs instead, as the JAX tool does:
@@ -26,7 +27,7 @@ run it under ``entry_numerics``, or an f32 config computes in TF32 on the
 card):
 
     import torch
-    import openset_rcnn_tpu_torch.ops  # registers the two custom operators
+    import openset_rcnn_tpu_torch.ops  # registers the custom operators
     from openset_rcnn_tpu_torch.device import entry_numerics
     from openset_rcnn_tpu_torch.tools import export_serving
 

@@ -57,8 +57,10 @@ those padded to window multiples); ``kernel.roi_align_fwd``,
 ``kernel.roi_align_fwd.adaptive``, ``kernel.roi_align_window``,
 ``kernel.roi_align_bwd``, ``kernel.roi_align_bwd.adaptive``,
 ``kernel.roi_align_bwd_bf16``, ``kernel.nms_keep`` (one a call, both
-passes) and ``kernel.iou_match`` (two a call): the CUDA kernels' launches
-by their wrappers in ``ops/`` (a graph replay calls no wrapper).
+passes), ``kernel.iou_match`` (two a call) and ``kernel.frozen_bn`` (the
+ResNet trunk's FrozenBN, residual and ReLU: 49 an R50 forward): the CUDA
+kernels' launches by their wrappers in ``ops/`` (a graph replay calls no
+wrapper).
 """
 from __future__ import annotations
 

@@ -951,3 +951,312 @@ def test_train_step_through_the_operator_is_bitwise_the_direct_launch(dev, monke
         params[route] = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     differ = [n for n, p in params["operator"].items() if not torch.equal(p, params["direct"][n])]
     assert not differ, differ
+
+
+# ------------------------------------- FrozenBN, residual and ReLU (openset_rcnn::frozen_bn_act)
+
+BN_FORMS = ("bn", "bn_relu", "bn_identity_relu", "bn_bn_relu")
+BN_LAYOUTS = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
+BN_INT_VIEW = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+R50_BUCKET = (832, 1344)
+
+
+def r50_frozen_bn_calls(H, W):
+    """(C, h, w, form) of each of a ResNet-50 trunk's 49 operator calls on an
+    H x W canvas: the stem, then bn1, bn2, bn3 (+ the shortcut's FrozenBN in
+    a stage's first block, + the block's input after it) per block."""
+    half = lambda n: (n + 1) // 2  # a stride-2 conv or pool with "same" padding
+    h, w = half(H), half(W)
+    calls = [(64, h, w, "bn_relu")]
+    h, w = half(h), half(w)
+    cout = 256
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            if b == 0 and stage > 0:
+                h, w = half(h), half(w)
+            calls += [(cout // 4, h, w, "bn_relu")] * 2 + [(cout, h, w, "bn_identity_relu" if b else "bn_bn_relu")]
+        cout *= 2
+    return calls
+
+
+def bn_specials(dtype):
+    tiny = torch.finfo(dtype).tiny
+    return torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, tiny / 4, -tiny / 64, tiny, -tiny])
+
+
+def bn_buffers(C, dev, g, special=True):
+    """(scale, bias, mean, var) f32 on the card, random; ``special`` puts
+    scale 0, var 0, a negative var + eps, bias -0.0 with mean 0, a huge mean
+    and a scale giving a subnormal w in channels 0-5."""
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(C, generator=g, device=dev)
+    scale, bias, mean, var = u(-0.5, 1.5), u(-1, 1), u(-3, 3), u(0, 4)
+    if special and C >= 6:
+        scale[0], var[1], var[2], bias[3], mean[3], mean[4], scale[5] = 0.0, 0.0, -1.0, -0.0, 0.0, 1e30, 1e-40
+    return scale, bias, mean, var
+
+
+def bn_activations(shape, dtype, layout, dev, g, special_share=0.01):
+    x = torch.randn(shape, generator=g, device=dev) * 4
+    if special_share:
+        flat = x.view(-1)
+        n = max(1, int(flat.numel() * special_share))
+        idx = torch.randint(0, flat.numel(), (n,), generator=g, device=dev)
+        vals = bn_specials(dtype).to(dev)
+        flat[idx] = vals[torch.randint(0, len(vals), (n,), generator=g, device=dev)]
+    return x.to(dtype).contiguous(memory_format=BN_LAYOUTS[layout])
+
+
+def bn_args(form, x, r, bn, rbn, eps=1e-5):
+    """The operator's arguments for ``form``."""
+    none = (None, None, None, None)
+    r = r if form in ("bn_identity_relu", "bn_bn_relu") else None
+    rest = (*rbn, eps) if form == "bn_bn_relu" else (*none, 0.0)
+    return (x, *bn, eps, r, *rest, form != "bn")
+
+
+def assert_bn_bitwise(got, want, what=""):
+    assert got.dtype == want.dtype and got.shape == want.shape and got.stride() == want.stride(), what
+    same = got.view(BN_INT_VIEW[got.dtype]) == want.view(BN_INT_VIEW[want.dtype])
+    assert bool(same.all()), f"{what}: {int((~same).sum())} of {same.numel()} differ"
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("layout", list(BN_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_frozen_bn_kernel_matches_plain_at_r50_shapes(dev, dtype, layout, batch):
+    """Every shape and form of R50's 53 FrozenBN layers at the 832x1344
+    bucket (and bn alone at the stem's), 1% of the activations NaN,
+    infinities, signed zeros or subnormals, special buffers in channels
+    0-5: the kernel bit for bit the plain version on the card, in x's
+    memory format, one launch a call."""
+    from openset_rcnn_tpu_torch.ops.frozen_bn import frozen_bn_act_plain
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    shapes = sorted(set(r50_frozen_bn_calls(*R50_BUCKET)), key=lambda s: (s[0], s[1], s[3]))
+    shapes.append((64, 416, 672, "bn"))
+    for C, h, w, form in shapes:
+        x = bn_activations((batch, C, h, w), dtype, layout, dev, g)
+        with_r = form in ("bn_identity_relu", "bn_bn_relu")
+        r = bn_activations((batch, C, h, w), dtype, layout, dev, g) if with_r else None
+        args = bn_args(form, x, r, bn_buffers(C, dev, g), bn_buffers(C, dev, g))
+        with counters() as n:
+            got = torch.ops.openset_rcnn.frozen_bn_act(*args)
+            torch.cuda.synchronize()
+        assert_bn_bitwise(got, frozen_bn_act_plain(*args), f"{form} {(batch, C, h, w)}")
+        assert n["kernel.frozen_bn"] == 1
+        del x, r, got
+
+
+@pytest.mark.parametrize("form", BN_FORMS)
+@pytest.mark.parametrize("kind", ["vectorized", "odd_channels", "odd_plane", "misaligned"])
+@pytest.mark.parametrize("layout", list(BN_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_frozen_bn_kernel_on_special_values_and_odd_shapes(dev, dtype, layout, kind, form):
+    """A third of the activations special, on the 16-byte path and on the
+    one-element path (C or H * W no multiple of the vector, or x 2 or 4
+    bytes past an aligned address): bit for bit the plain version."""
+    from openset_rcnn_tpu_torch.ops.frozen_bn import frozen_bn_act_plain
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    shape = {"odd_channels": (3, 12, 6, 8), "odd_plane": (2, 16, 5, 7)}.get(kind, (2, 64, 6, 8))
+    x, r = (bn_activations(shape, dtype, layout, dev, g, special_share=1 / 3) for _ in range(2))
+    if kind == "misaligned":
+        N, C, H, W = shape
+        perm = (0, 2, 3, 1) if layout == "channels_last" else (0, 1, 2, 3)
+        inverse = (0, 3, 1, 2) if layout == "channels_last" else (0, 1, 2, 3)
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        x = buf[1:].view([shape[i] for i in perm]).permute(inverse).copy_(x)
+        assert x.data_ptr() % 16 and x.is_contiguous(memory_format=BN_LAYOUTS[layout])
+    args = bn_args(form, x, r, bn_buffers(shape[1], dev, g), bn_buffers(shape[1], dev, g))
+    got = torch.ops.openset_rcnn.frozen_bn_act(*args)
+    want = frozen_bn_act_plain(*args)
+    assert_bn_bitwise(got, want, f"{form} {kind}")
+    assert bool(want.isnan().any())
+
+
+def test_frozen_bn_relu_keeps_what_clamp_min_keeps_on_the_card(dev):
+    """NaN, -0.0, +-inf and subnormals through the affine (buffers folding to
+    w = 1, b = -0.0, so -0.0 stays -0.0) and on into the ReLU: the kernel
+    writes what torch.relu writes on the card over its own affine, bit for
+    bit."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = bn_specials(dtype).to(dtype).repeat(8).reshape(1, 8, 3, 3).to(dev)
+        ones, zeros, bias = torch.ones(8, device=dev), torch.zeros(8, device=dev), torch.full((8,), -0.0, device=dev)
+        op = lambda relu: torch.ops.openset_rcnn.frozen_bn_act(x, ones, bias, zeros, ones, 0.0, None, None, None,
+                                                               None, None, 0.0, relu)
+        affine = op(False)
+        assert bool((affine.view(BN_INT_VIEW[dtype]) == x.view(BN_INT_VIEW[dtype]))[~x.isnan()].all())
+        assert_bn_bitwise(op(True), torch.relu(affine), str(dtype))
+
+
+def test_frozen_bn_kernel_rejects_what_it_does_not_take(dev):
+    from openset_rcnn_tpu_torch.ops.frozen_bn import _frozen_bn_act_cuda
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = bn_activations((2, 16, 6, 8), torch.bfloat16, "channels_last", dev, g, 0)
+    bn = bn_buffers(16, dev, g)
+    call = lambda x, bn=bn, r=None, rbn=(None,) * 4: _frozen_bn_act_cuda(x, *bn, 1e-5, r, *rbn, 1e-5, True)
+    call(x)  # what it takes
+    bad = {
+        "strides": x.permute(0, 1, 3, 2),  # neither channels_last nor contiguous
+        "sliced": x[:, :, :, :4],
+        "f16": x.half(),
+        "f64": x.double(),
+        "3-d": x[0],
+    }
+    for what, t in bad.items():
+        with pytest.raises(ValueError):
+            call(t)
+    with pytest.raises(ValueError):  # a residual in another memory format
+        call(x, r=x.contiguous())
+    with pytest.raises(ValueError):  # a residual of another dtype
+        call(x, r=x.float())
+    with pytest.raises(ValueError):  # buffers of the wrong size, dtype or device
+        call(x, bn=(bn[0][:8], *bn[1:]))
+    with pytest.raises(ValueError):
+        call(x, bn=(bn[0].double(), *bn[1:]))
+    with pytest.raises(ValueError):
+        call(x, bn=(bn[0].cpu(), *bn[1:]))
+    with pytest.raises(ValueError):  # three of the residual's four buffers
+        call(x, r=x, rbn=(*bn[:3], None))
+    with pytest.raises(ValueError):  # the residual's buffers without a residual
+        call(x, rbn=bn)
+
+
+@pytest.mark.parametrize("form", BN_FORMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_frozen_bn_gradients_on_the_card_are_autograd_bitwise(dev, dtype, form):
+    """The kernel's forward and the operator's backward give the gradients
+    autograd computes through the plain version on the card, bit for bit."""
+    from openset_rcnn_tpu_torch.ops.frozen_bn import frozen_bn_act_plain
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    shape = (2, 256, 52, 84)
+    x, r, grad = (bn_activations(shape, dtype, "channels_last", dev, g) for _ in range(3))
+    bn, rbn = bn_buffers(256, dev, g), bn_buffers(256, dev, g)
+    grads = {}
+    for route, fn in (("operator", torch.ops.openset_rcnn.frozen_bn_act), ("plain", frozen_bn_act_plain)):
+        xs, rs = x.clone().requires_grad_(True), r.clone().requires_grad_(True)
+        args = bn_args(form, xs, rs, bn, rbn)
+        with counters() as n:
+            fn(*args).backward(grad)
+        assert n["kernel.frozen_bn"] == (route == "operator")
+        grads[route] = (xs.grad, rs.grad)
+    for got, want in zip(grads["operator"], grads["plain"]):
+        if want is None:
+            assert got is None
+        else:
+            assert_bn_bitwise(got, want, form)
+
+
+def calibrated_r50(dev, dtype, batch, g):
+    """A seeded ResNet-50 in ``dtype`` on the card, channels_last, with
+    random FrozenBN statistics around unit scale, and an input batch at the
+    832x1344 bucket."""
+    from openset_rcnn_tpu_torch.models.resnet import FrozenBN, ResNet
+
+    model = ResNet(50, compute_dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(25))
+    cpu = torch.Generator().manual_seed(26)
+    for bn in (m for m in model.modules() if isinstance(m, FrozenBN)):
+        bn.scale.uniform_(0.2, 0.6, generator=cpu)
+        bn.bias.normal_(0, 0.5, generator=cpu)
+        bn.mean.normal_(0, 0.5, generator=cpu)
+        bn.var.uniform_(0.5, 4.0, generator=cpu)
+    model = model.to(dev, memory_format=torch.channels_last)
+    x = torch.randn(batch, 3, *R50_BUCKET, generator=g, device=dev).contiguous(memory_format=torch.channels_last)
+    return model, x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_r50_trunk_with_the_kernel_is_bitwise_the_plain_trunk(dev, dtype, monkeypatch):
+    """A ResNet-50 forward at 832x1344 launches the kernel 49 times, at the
+    shapes and forms ``r50_frozen_bn_calls`` lists, and its four outputs
+    equal the trunk's on the plain version, bit for bit."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.ops import frozen_bn
+
+    model, x = calibrated_r50(dev, dtype, 1, torch.Generator(device=dev).manual_seed(26))
+    seen = []
+    op = frozen_bn.frozen_bn_act_op
+
+    def recording(x, scale, bias, mean, var, eps, r, r_scale, *rest):
+        seen.append((x.shape[1], x.shape[2], x.shape[3],
+                     "bn_relu" if r is None else "bn_identity_relu" if r_scale is None else "bn_bn_relu"))
+        return op(x, scale, bias, mean, var, eps, r, r_scale, *rest)
+
+    monkeypatch.setattr(frozen_bn, "frozen_bn_act_op", recording)
+    with torch.no_grad(), entry_numerics(), counters() as n:
+        got = model(x)
+        torch.cuda.synchronize()
+    assert n["kernel.frozen_bn"] == 49 and seen == r50_frozen_bn_calls(*R50_BUCKET)
+    monkeypatch.setattr(frozen_bn, "frozen_bn_act_op", frozen_bn.frozen_bn_act_plain)
+    with torch.no_grad(), entry_numerics(), counters() as n:
+        want = model(x)
+    assert n["kernel.frozen_bn"] == 0
+    for k in ("res2", "res3", "res4", "res5"):
+        assert_bn_bitwise(got[k], want[k], k)
+    assert bool(torch.isfinite(want["res5"].float()).all())
+
+
+def test_predictor_graph_replay_is_bitwise_the_plain_eager_forward(dev, monkeypatch):
+    """The production bf16 config at 832x1344, batch 1: the eager call and
+    the capture launch the kernel 49 times each, a replay calls no wrapper,
+    and the replay's detections equal the eager forward and cascade on the
+    plain version, bit for bit."""
+    from openset_rcnn_tpu_torch.evaluation.inference import Predictor
+    from openset_rcnn_tpu_torch.ops import frozen_bn
+
+    p = Predictor(config_file("openset_rcnn_R50_FPN_128k_tpu.yaml"), dev, seed=0)
+    g = torch.Generator().manual_seed(27)
+    images = torch.randint(0, 256, (1, *R50_BUCKET, 3), generator=g, dtype=torch.uint8).to(dev)
+    image_hw = torch.tensor([[720.0, 1280.0]], device=dev)
+    launched = []
+    for _ in range(3):
+        with counters() as n:
+            out = p(images, image_hw)
+            torch.cuda.synchronize()
+        launched.append(n["kernel.frozen_bn"])
+    assert launched == [49, 49, 0]
+    monkeypatch.setattr(frozen_bn, "frozen_bn_act_op", frozen_bn.frozen_bn_act_plain)
+    want = p.cascade(p.raw(images, image_hw))
+    for name in type(out)._fields:
+        a, b = getattr(out, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
+    assert bool(want.valid.any())
+
+
+@pytest.mark.parametrize("config, launches", [
+    ("openset_rcnn_R50_FPN_128k_tpu.yaml", 49),
+    ("openset_rcnn_ViT_FPN_128k.yaml", 0),
+    ("openset_rcnn_SwinB_FPN_128k.yaml", 0),
+])
+def test_frozen_bn_launches_by_trunk(dev, config, launches):
+    """One eager pyramid forward counts 49 launches on R50 and none on the
+    ViT-B and Swin-B trunks (LayerNorm only)."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.models.detector import ModelSpec, build_model
+
+    cfg = config_file(config)
+    model = build_model(ModelSpec.from_cfg(cfg), dev, seed=0)
+    batch = small_trainer_batch(dev, cfg)
+    with torch.no_grad(), entry_numerics(), counters() as n:
+        model.features(batch.images, batch.image_hw)
+        torch.cuda.synchronize()
+    assert n["kernel.frozen_bn"] == launches
+
+
+@pytest.mark.parametrize("remat, launches", [(False, 49), (True, 88)])
+def test_frozen_bn_launches_in_a_train_step(dev, remat, launches):
+    """A train step launches the kernel in the trunk's forward only (49; the
+    backward is plain PyTorch); with ``TPU.REMAT`` the 13 blocks above the
+    frozen res2 recompute their forward in the backward (+39)."""
+    from openset_rcnn_tpu_torch.engine.train_state import Trainer
+
+    cfg = config_file("openset_rcnn_R50_FPN_128k.yaml", REMAT=remat)
+    trainer = Trainer(cfg, seed=0)
+    batch = small_trainer_batch(dev, cfg)
+    with counters() as n:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    assert n["kernel.frozen_bn"] == launches
