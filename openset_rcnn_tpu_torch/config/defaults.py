@@ -58,6 +58,23 @@ def get_default_cfg() -> CN:
     _C.MODEL.VIT.DROP_PATH_RATE = 0.0  # ViTDet-B fine-tune recipe: 0.1;
                                        # 0.0 = converted-weight parity
 
+    # MViTv2 backbone (Li et al., arXiv:2112.01526, as detectron2's
+    # projects/MViTv2 builds it for detection; models/mvit.py) — selected via
+    # MODEL.BACKBONE.NAME build_mvit_fpn_backbone. Defaults: MViTv2-T.
+    _C.MODEL.MVIT = CN()
+    _C.MODEL.MVIT.EMBED_DIM = 96  # width of stage 1; doubles at each stage end
+    _C.MODEL.MVIT.DEPTH = 10  # blocks in all
+    _C.MODEL.MVIT.NUM_HEADS = 1  # heads of stage 1; double at each stage end
+    _C.MODEL.MVIT.LAST_BLOCK_INDEXES = [0, 2, 7, 9]  # the block ending each of the four stages
+    _C.MODEL.MVIT.QKV_POOL_KERNEL = 3  # the depthwise pooling convolutions' kernel
+    _C.MODEL.MVIT.ADAPTIVE_KV_STRIDE = 4  # k/v pooling stride of stage 1; halves per stage, at least 1
+    _C.MODEL.MVIT.ADAPTIVE_WINDOW_SIZE = 56  # attention window of stage 1 (before pooling); halves per stage
+    _C.MODEL.MVIT.RESIDUAL_POOLING = True  # add the pooled q to the attention output
+    _C.MODEL.MVIT.MLP_RATIO = 4.0
+    _C.MODEL.MVIT.PRETRAIN_SIZE = 224  # sizes the relative-position tables (PRETRAIN_SIZE // 4 a side)
+    _C.MODEL.MVIT.DROP_PATH_RATE = 0.0  # stochastic depth, linspace(0, rate) over the blocks;
+                                        # 0.0 = converted-weight parity
+
     _C.MODEL.FPN = CN()
     _C.MODEL.FPN.IN_FEATURES = ["res2", "res3", "res4", "res5"]
     _C.MODEL.FPN.OUT_CHANNELS = 256

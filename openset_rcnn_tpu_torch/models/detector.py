@@ -44,6 +44,7 @@ from .roi_heads import (
     pool_features,
     raw_detections,
 )
+from .mvit import MViT, MViTConfig
 from .rpn import ClsFreeRPNHead, rpn_losses, rpn_targets, select_proposals
 from .swin import SwinTransformer
 from .vit import ViTSimpleFPN
@@ -114,6 +115,7 @@ class ModelSpec(NamedTuple):
     swin_window: int
     swin_drop_path: float
     vit_drop_path: float
+    mvit: MViTConfig
 
     @staticmethod
     def from_cfg(cfg, id_map: Optional[Sequence[int]] = None) -> "ModelSpec":
@@ -179,6 +181,7 @@ class ModelSpec(NamedTuple):
             swin_window=m.SWIN.WINDOW,
             swin_drop_path=m.SWIN.get("DROP_PATH_RATE", 0.0),
             vit_drop_path=m.VIT.get("DROP_PATH_RATE", 0.0) if "VIT" in m else 0.0,
+            mvit=MViTConfig.from_cfg(m.MVIT),
         )
 
 
@@ -205,7 +208,9 @@ def known_ids_id_map(num_classes: int, known_contiguous_ids: Sequence[int]) -> L
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-RESNET, SWIN, VIT = "build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone"
+RESNET, SWIN, VIT, MVIT = ("build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone",
+                           "build_mvit_fpn_backbone")
+BACKBONES = (RESNET, SWIN, VIT, MVIT)
 
 
 class OpensetRCNN(nn.Module):
@@ -214,7 +219,8 @@ class OpensetRCNN(nn.Module):
     The backbone is the one ``MODEL.BACKBONE.NAME`` names, as the JAX
     module builds it (``openset_rcnn_tpu/models/detector.py:196-220``): a
     ResNet + FPN (``TPU.REMAT`` recomputes its blocks in the backward), a
-    Swin Transformer + FPN, or the ViT with its simple pyramid (no ``fpn``).
+    Swin Transformer + FPN, or the ViT with its simple pyramid (no ``fpn``);
+    or, in the port only, MViTv2 + FPN (``MODEL.MVIT``).
     It runs in float32 or bfloat16 (``TPU.DTYPE``; bf16 covers the trunk,
     FPN, RPN head and box head, with parameters, losses and the other heads
     in f32, as the JAX module) with the static RoIAlign grid or the adaptive
@@ -224,8 +230,8 @@ class OpensetRCNN(nn.Module):
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        if spec.backbone_name not in (RESNET, SWIN, VIT):
-            raise ValueError(f"MODEL.BACKBONE.NAME must be one of {(RESNET, SWIN, VIT)}, not {spec.backbone_name!r}")
+        if spec.backbone_name not in BACKBONES:
+            raise ValueError(f"MODEL.BACKBONE.NAME must be one of {BACKBONES}, not {spec.backbone_name!r}")
         if spec.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"TPU.DTYPE must be one of {tuple(COMPUTE_DTYPES)}, not {spec.compute_dtype!r}")
         if spec.roi_sampling_ratio < 1 and spec.roi_sampling_ratio != ADAPTIVE:
@@ -245,6 +251,9 @@ class OpensetRCNN(nn.Module):
         elif spec.backbone_name == SWIN:
             self.backbone = SwinTransformer(size=spec.swin_size, window=spec.swin_window, compute_dtype=dtype,
                                             drop_path_rate=spec.swin_drop_path)
+            self.fpn = FPN(out_channels=256, compute_dtype=dtype, in_channels=self.backbone.out_channels)
+        elif spec.backbone_name == MVIT:
+            self.backbone = MViT(spec.mvit, compute_dtype=dtype)
             self.fpn = FPN(out_channels=256, compute_dtype=dtype, in_channels=self.backbone.out_channels)
         else:
             self.backbone = ResNet(depth=spec.resnet_depth, compute_dtype=dtype, remat=spec.remat)
@@ -336,8 +345,8 @@ TRUNK_STAGE = "backbone."  # prefix of the marks of a trunk's own stages
 
 def backbone_stages(model: OpensetRCNN) -> List[Stage]:
     """The backbone as stages: one, "backbone" (preprocess, trunk, FPN),
-    or, where the trunk gives its own (``resolution_stages()``, Swin's four
-    stages), "backbone.<name>" for each (the first with the preprocess),
+    or, where the trunk gives its own (``resolution_stages()``: Swin's and
+    MViT's four stages), "backbone.<name>" for each (the first with the preprocess),
     then "backbone" for the FPN. Either way the last stage returns
     (P2-P6, image_hw)."""
     trunk = getattr(model.backbone, "resolution_stages", None)

@@ -40,7 +40,8 @@ Span names, dotted by layer (where each is recorded):
   ``train.step`` (``Trainer.step``) and its stages ``stage.backbone``,
   ``stage.rpn``, ``stage.sampling``, ``stage.roi_align``, ``stage.heads``,
   ``stage.backward``, ``stage.optimizer``; inside ``predict``'s eager
-  calls, a trunk's own stages ``stage.backbone.res2`` .. ``.res5`` (Swin);
+  calls, a trunk's own stages ``stage.backbone.res2`` .. ``.res5`` (Swin,
+  MViT);
 * ``eval.wait`` (``HostCopy.numpy``'s wait for the copies),
   ``eval.consume`` (per batch, with its ``image_ids``: the cascade or
   finalize and the evaluator's ``process``), ``eval.evaluate`` (the
@@ -53,7 +54,11 @@ Counters: ``data.images`` (images transformed); ``data.resize.native``,
 one of the three per call: run eagerly, captured as CUDA graphs, replayed);
 ``swin.tokens``, ``swin.window_tokens`` (``models/swin.py``, per stage of
 an eager or capturing call: the tokens entering its attention blocks, and
-those padded to window multiples); ``kernel.roi_align_fwd``,
+those padded to window multiples); ``mvit.q_tokens``, ``mvit.kv_tokens``,
+``mvit.attn_logits`` (``models/mvit.py``, per stage of an eager or capturing
+call: the query and the key/value tokens after pooling, and the attention
+logits materialised, padded windows included, x blocks x batch);
+``kernel.roi_align_fwd``,
 ``kernel.roi_align_fwd.adaptive``, ``kernel.roi_align_window``,
 ``kernel.roi_align_bwd``, ``kernel.roi_align_bwd.adaptive``,
 ``kernel.roi_align_bwd_bf16``, ``kernel.nms_keep`` (one a call, both
