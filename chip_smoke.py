@@ -55,6 +55,13 @@ In order it
      of a bf16 ResNet-50 forward on one 832x1344 image, each bitwise its
      plain version; one frame's calls timed as a CUDA graph on the kernel
      and on the plain version, beside the bytes' bound;
+  8b. mvit_pool_norm (MViT's pooling of q, k and v: the split, the depthwise
+     3x3 conv, the head-width LayerNorm, the window cut, in one pass): an
+     eager MViTv2-L trunk forward at batch 8 and 832x1344 launches it 48
+     times, at the shapes of its schedule; each distinct call against the
+     plain version on random inputs (2e-5 scaled, padded window rows 0);
+     the 48 calls timed as one CUDA graph on the kernel and on the plain
+     version, beside the bytes' bound;
   9. references: the serving path and one training step on the GPU against
      the same seeded model on the CPU (plain versions) on a 2x64x96 batch:
      f32 (configs/VOC-COCO/openset_rcnn_R50_FPN_128k.yaml), bf16
@@ -218,6 +225,7 @@ CONFIG_BF16 = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_tpu.yaml"  # th
 CONFIG_PARITY = ROOT / "configs/VOC-COCO/openset_rcnn_R50_FPN_128k_parity.yaml"
 CONFIG_SWIN = ROOT / "configs/VOC-COCO/openset_rcnn_SwinT_FPN_128k.yaml"  # Swin-T, drop-path 0.2
 CONFIG_VIT = ROOT / "configs/VOC-COCO/openset_rcnn_ViT_FPN_128k.yaml"    # ViT-B, norm clipping
+CONFIG_MVIT = ROOT / "configs/VOC-COCO/openset_rcnn_MViTv2L_FPN_128k.yaml"  # MViTv2-L
 BATCH = 8
 BUCKET = (832, 1344)
 STRIDES = (4, 8, 16, 32)
@@ -516,7 +524,7 @@ COUNTED = {"roi_align_fwd": "kernel.roi_align_fwd", "roi_align_fwd_adaptive": "k
            "roi_align_bwd": "kernel.roi_align_bwd", "roi_align_bwd_adaptive": "kernel.roi_align_bwd.adaptive",
            "roi_align_bwd_bf16": "kernel.roi_align_bwd_bf16", "iou_match": "kernel.iou_match",
            "nms_keep": "kernel.nms_keep", "roi_align_window": "kernel.roi_align_window",
-           "frozen_bn_act": "kernel.frozen_bn"}
+           "frozen_bn_act": "kernel.frozen_bn", "mvit_pool_norm": "kernel.mvit_pool_norm"}
 
 
 def counters():
@@ -1560,6 +1568,123 @@ def phase_frozen_bn(torch, dev):
                 replaces="none: XLA fused FrozenBN's affine (openset_rcnn_tpu/models/resnet.py)",
                 max_abs_err=0.0, ms=frame_ms["kernel"], plain_ms=frame_ms["plain"], bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None, device_ms=49 * launch_ms)
+
+
+MVIT_POOL_TOL = 2e-5  # kernel vs plain, scaled by max(1, max|want|): f32 sums in another order
+
+
+def mvit_pool_calls(H, W):
+    """[(H, W, heads, d, stride_q, stride_kv, q window, kv window)] of
+    MViTv2-L's pooling calls on an H x W token grid, in block order."""
+    from openset_rcnn_tpu_torch.models.mvit import MViTConfig, block_schedule, pooled_side
+
+    calls = []
+    for s in block_schedule(MViTConfig.from_cfg(load_cfg(CONFIG_MVIT).MODEL.MVIT)):
+        windows = (s.window // s.stride_q, s.window // s.stride_kv) if s.window else (0, 0)
+        calls.append((H, W, s.num_heads, s.dim_out // s.num_heads, s.stride_q, s.stride_kv, *windows))
+        H, W = pooled_side(H, 3, s.stride_q), pooled_side(W, 3, s.stride_q)
+    return calls
+
+
+def mvit_pool_bytes(call, B):
+    """(bytes the call needs: the input positions its taps read and its
+    outputs, padded windows included; the same with the whole input)."""
+    from openset_rcnn_tpu_torch.models.mvit import pooled_side
+
+    H, W, heads, d, sq, skv, wq, wk = call
+
+    def read(n, s):  # rows (or columns) of n that some 3x3 tap at stride s reads
+        return len({r for i in range(pooled_side(n, 3, s)) for r in (i * s - 1, i * s, i * s + 1) if 0 <= r < n})
+
+    per_token = B * heads * d * 4
+    needed, written = 0, 0
+    for s, w in ((sq, wq), (skv, wk), (skv, wk)):
+        h, wd = pooled_side(H, 3, s), pooled_side(W, 3, s)
+        if w:
+            h, wd = -(-h // w) * w, -(-wd // w) * w
+        written += h * wd * per_token
+        needed += read(H, s) * read(W, s) * per_token
+    return needed + written, 3 * H * W * per_token + written
+
+
+def phase_mvit_pool(torch, dev):
+    """MViT's pooling kernel at the mvitv2_l.eval cell's shapes: an eager
+    MViTv2-L trunk forward (seeded weights) at batch 8 and 832x1344 launches
+    it 48 times, at ``mvit_pool_calls``' shapes; each distinct call against
+    the plain version on random inputs at batch 8; the 48 calls timed as one
+    CUDA graph on the kernel and on the plain version (TF32 off, as the
+    entry points run), the kernel's device time by the profiler, beside the
+    bytes' bound."""
+    from openset_rcnn_tpu_torch.device import entry_numerics
+    from openset_rcnn_tpu_torch.models.mvit import MViT, MViTConfig
+    from openset_rcnn_tpu_torch.ops import mvit_pool
+
+    grid = (BUCKET[0] // 4, BUCKET[1] // 4)
+    calls = mvit_pool_calls(*grid)
+    check(len(calls) == 48, f"mvit_pool_norm: MViTv2-L has {len(calls)} pooling blocks, expected 48")
+    trunk = MViT(MViTConfig.from_cfg(load_cfg(CONFIG_MVIT).MODEL.MVIT))
+    trunk.reset_parameters(torch.Generator().manual_seed(11))
+    trunk = trunk.to(dev)
+    op, seen = mvit_pool.mvit_pool_norm_op, []
+
+    def recording(qkv, *args):
+        seen.append((*qkv.shape[1:3], args[9], qkv.shape[3] // (3 * args[9]), *args[10:14]))
+        return op(qkv, *args)
+
+    images = torch.randn(BATCH, 3, *BUCKET, generator=torch.Generator().manual_seed(12)).to(dev)
+    mvit_pool.mvit_pool_norm_op = recording
+    reset_launches()
+    try:
+        with torch.no_grad(), entry_numerics():
+            trunk(images)
+            torch.cuda.synchronize()
+    finally:
+        mvit_pool.mvit_pool_norm_op = op
+        launches = read_launches()
+    check(seen == calls, f"mvit_pool_norm: the trunk's calls {seen} are not its schedule's {calls}")
+    want_launches = {name: 0 for name in launches}
+    want_launches["mvit_pool_norm"] = len(calls)
+    check(launches == want_launches, f"mvit_pool_norm: trunk launches {launches}, expected {want_launches}")
+    del trunk, images
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    inputs, args, worst = {}, [], 0.0
+    for i, call in enumerate(calls):
+        H, W, heads, d, sq, skv, wq, wk = call
+        if call not in inputs:
+            inputs[call] = torch.randn(BATCH, H, W, 3 * heads * d, generator=g, device=dev)
+        weights = [torch.randn(d, 1, 3, 3, generator=g, device=dev) * 0.3 for _ in range(3)]
+        norms = [t for _ in range(3) for t in (0.5 + torch.rand(d, generator=g, device=dev),
+                                               0.1 * torch.randn(d, generator=g, device=dev))]
+        args.append((inputs[call], *weights, *norms, heads, sq, skv, wq, wk, 1e-6))
+    with entry_numerics():
+        for call in inputs:
+            a = args[calls.index(call)]
+            for name, got, want in zip("qkv", op(*a), mvit_pool.mvit_pool_norm_plain(*a)):
+                err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+                worst = max(worst, err)
+                check(got.shape == want.shape and err <= MVIT_POOL_TOL,
+                      f"mvit_pool_norm vs plain at {call}, {name}: scaled error {err:.3e}")
+                if call[6]:  # the windowed output's padded rows: +0.0
+                    check(bool((got.view(torch.int32)[want == 0] == 0).all()),
+                          f"mvit_pool_norm at {call}, {name}: a padded row is not +0.0")
+        pass_ms = {label: time_ms(torch, cuda_graph(torch, lambda: [fn(*a) for a in args]).replay, 10)
+                   for label, fn in (("kernel", op), ("plain", mvit_pool.mvit_pool_norm_plain))}
+        launch_ms = device_ms(torch, lambda: [op(*a) for a in args], 3, ("mvit_pool_norm",))["mvit_pool_norm"]
+    needed, whole = map(sum, zip(*(mvit_pool_bytes(call, BATCH) for call in calls)))
+    bound_ms = needed / HBM_BYTES_PER_S * 1e3
+    print(f"mvit_pool_norm: MViTv2-L f32 at {BUCKET[0]}x{BUCKET[1]}, batch {BATCH}, {len(calls)} calls a batch, "
+          f"scaled error {worst:.3e} against the plain version; per batch (CUDA graph of its calls): kernel "
+          f"{pass_ms['kernel']:.4f} ms (device time {48 * launch_ms:.4f} ms), plain {pass_ms['plain']:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes: {needed / 1e9:.3f} GB the taps need; {whole / 1e9:.3f} GB with the "
+          f"whole input, {whole / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bound_ms / pass_ms['kernel']:.1f}% of "
+          f"the bound", flush=True)
+    entry = dict(name="mvit_pool_norm", route="cuda", source="openset_rcnn_tpu_torch/csrc/mvit_pool_norm.cu",
+                 replaces="none: the JAX package has no MViT", max_abs_err=worst, ms=pass_ms["kernel"],
+                 plain_ms=pass_ms["plain"], bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                 device_ms=48 * launch_ms)
+    return entry, launches
 
 
 def phase_roi_align_bwd_bf16(torch, dev):
@@ -3164,6 +3289,8 @@ def main():
     paths = {}
     window, paths["window"] = phase_roi_align_window(torch, dev)
     kernels += [phase_roi_align_bwd_bf16(torch, dev), window, phase_frozen_bn(torch, dev)]
+    mvit_pool_entry, paths["mvit"] = phase_mvit_pool(torch, dev)
+    kernels.append(mvit_pool_entry)
     phase_reference(torch, dev, load_cfg(), "f32", bf16=False)
     phase_reference(torch, dev, load_cfg(CONFIG_BF16), "bf16", bf16=True)
     phase_reference(torch, dev, load_cfg(CONFIG_BF16, ROI_ALIGN_IMPL="pallas"), "bf16, ROI_ALIGN_IMPL pallas",
@@ -3206,11 +3333,12 @@ def main():
     # launches: from the path of this slice that runs the kernel (eval: K1,
     # K4; train: K2 f32, K3; train_bf16: K2 bf16; the adaptive modes of K1
     # and K2 f32: parity_eval and train_parity; K5, which no path of the
-    # model runs: its own call; FrozenBN's: eval)
+    # model runs: its own call; FrozenBN's: eval; MViT's pooling: the MViTv2-L
+    # trunk of phase 8b)
     home = {"roi_align_fwd": "eval", "nms_keep": "eval", "roi_align_bwd": "train", "iou_match": "train",
             "roi_align_bwd_bf16": "train_bf16", "roi_align_window": "window",
             "roi_align_fwd_adaptive": "parity_eval", "roi_align_bwd_adaptive": "train_parity",
-            "frozen_bn_act": "eval"}
+            "frozen_bn_act": "eval", "mvit_pool_norm": "mvit"}
     for k in kernels:
         k["launches"] = paths[home[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: launches[k["name"]] for p, launches in paths.items()}

@@ -42,7 +42,8 @@ from typing import Any, Dict, Iterable, NamedTuple, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep", "frozen_bn_act", "launch_floor")
+KERNELS = ("roi_align_fwd", "roi_align_bwd", "iou_match", "nms_keep", "frozen_bn_act", "mvit_pool_norm",
+           "launch_floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -80,6 +81,11 @@ LIBRARIES = {
     # channels_last, residual form, relu, vectorized, stream
     "frozen_bn_act": Library("frozen_bn_act.cu", NVCC_FLAGS, {
         "frozen_bn_act": (_i, [_p] * 7 + [_f] + [_p] * 4 + [_f] + [ctypes.c_int64] * 3 + [_i] * 5 + [_p]),
+    }),
+    # qkv, q, k, v, the three pooling weights, the three norms' scale and bias, eps, B, H, W, heads, d,
+    # stride_q, stride_kv, q_window, kv_window, stream
+    "mvit_pool_norm": Library("mvit_pool_norm.cu", NVCC_FLAGS, {
+        "mvit_pool_norm": (_i, [_p] * 13 + [_f] + [_i] * 9 + [_p]),
     }),
     "launch_floor": Library("launch_floor.cu", NVCC_FLAGS, {"empty_launch": (_i, [_i, _i, _p])}),
     "resize_bilinear": Library("resize_bilinear.cpp", CXX_FLAGS, {

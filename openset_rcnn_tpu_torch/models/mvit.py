@@ -12,14 +12,17 @@ padding 1) where the block pools its queries; then the MLP (ratio 4, exact
 GELU) with its residual. The attention computes q, k and v of the whole
 grid by one Linear, pools each per head with a depthwise 3x3 convolution
 (q at ``stride_q``, k and v at ``stride_kv``) and a LayerNorm over the head
-width, then attends in windows cut *after* pooling (q in windows of
+width (these and the window cut below are the operator of
+``ops/mvit_pool.py``, one CUDA kernel on the card), then attends in windows
+cut *after* pooling (q in windows of
 ``window // stride_q``, k and v of ``window // stride_kv``, the bottom and
 right padded with zeros, unmasked; both give the same number of windows) or
 globally (``window`` 0), with decomposed relative positions
 (``get_rel_pos``: per-axis tables, resized by linear interpolation to the
 query and key extents, indexed with scaled coordinates, taken against the
-unscaled q), and adds the pooled q back to the output (residual pooling)
-before the heads are merged and projected.
+unscaled q), and adds the pooled q back to the output (residual pooling,
+in windows where the block attends in windows) before the heads are merged
+and projected.
 
 The schedule (``block_schedule``): block i pools its queries 2x when block
 i - 1 ends a stage; blocks ``LAST_BLOCK_INDEXES[1:]`` attend globally, and
@@ -54,10 +57,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mvit_pool import mvit_pool_norm, pooled_side
 from ..utils import tracing
 from .resnet import Conv2d
 from .transformer import LayerNorm, Linear, drop_path, reset_transformer_parameters
-from .vit import _window_partition, _window_unpartition
+from .vit import _window_unpartition
 
 EPS = 1e-6
 PATCH_KERNEL, PATCH_STRIDE = 7, 4
@@ -116,12 +120,6 @@ def block_schedule(c: MViTConfig) -> List[BlockSpec]:
     return out
 
 
-def pooled_side(n: int, kernel: int, stride: int) -> int:
-    """The side of a pooled grid: a kernel-``kernel`` convolution at
-    ``stride`` with padding ``kernel // 2``."""
-    return (n + 2 * (kernel // 2) - kernel) // stride + 1
-
-
 def rel_pos_index(q_size: int, k_size: int) -> torch.Tensor:
     """(q_size, k_size) rows of a (2 * max(q_size, k_size) - 1)-row table,
     as detectron2 computes them (f32 coordinates, truncated)."""
@@ -146,6 +144,7 @@ class MultiScaleAttention(nn.Module):
         dim, dim_out, heads = spec.dim, spec.dim_out, spec.num_heads
         d = dim_out // heads
         self.num_heads, self.scale, self.residual_pooling = heads, d ** -0.5, residual_pooling
+        self.kernel, self.stride_q, self.stride_kv = kernel, spec.stride_q, spec.stride_kv
         # 0 and 0: global attention
         self.q_window, self.kv_window = (spec.window // spec.stride_q, spec.window // spec.stride_kv) if spec.window \
             else (0, 0)
@@ -168,28 +167,23 @@ class MultiScaleAttention(nn.Module):
             self._index[key] = rel_pos_index(q_size, k_size).to(device)
         return self._index[key]
 
-    def _pool(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        """(N, H, W, d) -> the depthwise conv of ``pool_<name>`` and its norm."""
-        x = getattr(self, f"pool_{name}")(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return getattr(self, f"norm_{name}")(x)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, dim), normed -> (B, H', W', dim_out) on the pooled
         query grid."""
         B, H, W, _ = x.shape
         h = self.num_heads
-        qkv = self.qkv(x).reshape(B, H, W, 3, h, -1).permute(3, 0, 4, 1, 2, 5).reshape(3, B * h, H, W, -1)
-        q, k, v = (self._pool(t, name) for t, name in zip(qkv, "qkv"))
-        q0, (qh, qw), d = q, q.shape[1:3], q.shape[-1]
+        # pooled, normed and (windowed blocks) cut into windows: (N, tokens, d) each
+        q, k, v = mvit_pool_norm(self.qkv(x), self)
+        qh, qw = pooled_side(H, self.kernel, self.stride_q), pooled_side(W, self.kernel, self.stride_q)
+        d = q.shape[-1]
         if self.q_window:
-            q, q_pad = _window_partition(q, self.q_window)
-            k, _ = _window_partition(k, self.kv_window)
-            v, _ = _window_partition(v, self.kv_window)
             if q.shape[0] != k.shape[0]:
                 raise ValueError(f"{q.shape[0]} query windows against {k.shape[0]} key windows")
-        q_hw, kv_hw = tuple(q.shape[1:3]), tuple(k.shape[1:3])
+            q_hw, kv_hw = (self.q_window,) * 2, (self.kv_window,) * 2
+        else:
+            q_hw = (qh, qw)
+            kv_hw = (pooled_side(H, self.kernel, self.stride_kv), pooled_side(W, self.kernel, self.stride_kv))
         N = q.shape[0]
-        q, k, v = q.reshape(N, -1, d), k.reshape(N, -1, d), v.reshape(N, -1, d)
         attn = torch.matmul(q * self.scale, k.transpose(-1, -2)).float()
         rh = get_rel_pos(self.rel_pos_h, self.rel_index(q_hw[0], kv_hw[0], x.device)).float()
         rw = get_rel_pos(self.rel_pos_w, self.rel_index(q_hw[1], kv_hw[1], x.device)).float()
@@ -198,11 +192,13 @@ class MultiScaleAttention(nn.Module):
         rel_w = torch.einsum("nhwc,wkc->nhwk", rq, rw)
         attn = attn.view(N, *q_hw, *kv_hw).add_(rel_h[..., None]).add_(rel_w[..., None, :])
         attn = torch.softmax(attn.view(N, q.shape[1], -1), dim=-1).to(v.dtype)
-        out = torch.matmul(attn, v).reshape(N, *q_hw, d)
+        out = torch.matmul(attn, v)
+        if self.residual_pooling:  # in windows: the padded rows are cropped below
+            out = out + q
+        out = out.reshape(N, *q_hw, d)
         if self.q_window:
-            out = _window_unpartition(out, self.q_window, q_pad, (qh, qw))
-        if self.residual_pooling:
-            out = out + q0
+            wq = self.q_window
+            out = _window_unpartition(out, wq, (-(-qh // wq) * wq, -(-qw // wq) * wq), (qh, qw))
         out = out.reshape(B, h, qh, qw, d).permute(0, 2, 3, 1, 4).reshape(B, qh, qw, h * d)
         return self.proj(out)
 

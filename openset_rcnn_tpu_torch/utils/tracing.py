@@ -62,10 +62,11 @@ logits materialised, padded windows included, x blocks x batch);
 ``kernel.roi_align_fwd.adaptive``, ``kernel.roi_align_window``,
 ``kernel.roi_align_bwd``, ``kernel.roi_align_bwd.adaptive``,
 ``kernel.roi_align_bwd_bf16``, ``kernel.nms_keep`` (one a call, both
-passes), ``kernel.iou_match`` (two a call) and ``kernel.frozen_bn`` (the
-ResNet trunk's FrozenBN, residual and ReLU: 49 an R50 forward): the CUDA
-kernels' launches by their wrappers in ``ops/`` (a graph replay calls no
-wrapper).
+passes), ``kernel.iou_match`` (two a call), ``kernel.frozen_bn`` (the
+ResNet trunk's FrozenBN, residual and ReLU: 49 an R50 forward) and
+``kernel.mvit_pool_norm`` (MViT's pooling of q, k and v: one a block, 48 an
+MViTv2-L forward): the CUDA kernels' launches by their wrappers in ``ops/``
+(a graph replay calls no wrapper).
 """
 from __future__ import annotations
 

@@ -24,7 +24,8 @@ table.
 * The L yaml: 212,484,384 trunk parameters, by the hand formula too, and one
   ``do_train`` step.
 * On the card (``cuda``): the small detector's stage graphs bitwise the
-  eager path.
+  eager path, the pooling kernel launched once a block on the calls that
+  run the wrappers.
 
 Imports nothing of the JAX package:
 
@@ -45,6 +46,7 @@ from openset_rcnn_tpu_torch.models import detector as port_det
 from openset_rcnn_tpu_torch.models import mvit as port_mvit
 from openset_rcnn_tpu_torch.models.detector import ModelSpec, OpensetRCNN, build_model, inference_stages
 from openset_rcnn_tpu_torch.models.mvit import MViT, MViTConfig
+from openset_rcnn_tpu_torch.models import vit
 from openset_rcnn_tpu_torch.utils import tracing
 from perfbench.reference import model as ref_model
 from perfbench.reference.backbones import build_mvit_fpn_backbone
@@ -236,18 +238,20 @@ def test_window_counts_agree():
 
 
 def test_window_partitions_agree_in_the_block(monkeypatch):
-    """At a grid that pads, the block's own partitions of q and kv give the
-    same number of windows (the block raises where they would not)."""
+    """At a grid that pads, the block's own partitions of q and kv (inside
+    its pooling operator, ``ops/mvit_pool.py``, which calls
+    ``models/vit.py``'s) give the same number of windows (the block raises
+    where they would not)."""
     port, _ = small_trunks()
     seen = []
-    real = port_mvit._window_partition
+    real = vit._window_partition
 
     def spy(x, w):
         out = real(x, w)
         seen.append(out[0].shape[0])
         return out
 
-    monkeypatch.setattr(port_mvit, "_window_partition", spy)
+    monkeypatch.setattr(vit, "_window_partition", spy)
     with torch.no_grad():
         port.block0(torch.randn(1, 23, 29, 16))
     assert seen == [12, 12, 12]  # 3 x 4 windows of q (8), of k and of v (2)
@@ -440,7 +444,8 @@ def test_graphs_on_the_card():
     """The small MViT detector on the card at batch 2: four calls, each
     bitwise the eager path, the marks between the same stages on the eager,
     capturing and replaying calls, and the counters counted on the eager
-    and capturing calls and the eager ``raw`` calls only."""
+    and capturing calls and the eager ``raw`` calls only: the pooling
+    kernel's launches too, once a block (8) a call that runs the wrappers."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     cfg = load_cfg()
@@ -463,3 +468,4 @@ def test_graphs_on_the_card():
     assert {kind: counters.get(kind, 0) for kind in kinds} == dict(zip(kinds, (1, 1, 2)))
     q = sum(c[0] for c in hand_counts(2, 256, 384))
     assert counters["mvit.q_tokens"] == 6 * q
+    assert counters["kernel.mvit_pool_norm"] == 6 * 8
