@@ -75,6 +75,21 @@ def get_default_cfg() -> CN:
     _C.MODEL.MVIT.DROP_PATH_RATE = 0.0  # stochastic depth, linspace(0, rate) over the blocks;
                                         # 0.0 = converted-weight parity
 
+    # EVA-02 in the ViTDet frame (Fang et al., arXiv:2303.11331; baaivision/EVA
+    # EVA-02/det; models/vit.py) — selected via MODEL.BACKBONE.NAME
+    # build_eva02_fpn_backbone. Defaults: EVA-02-L.
+    _C.MODEL.EVA02 = CN()
+    _C.MODEL.EVA02.EMBED_DIM = 1024
+    _C.MODEL.EVA02.DEPTH = 24
+    _C.MODEL.EVA02.NUM_HEADS = 16
+    _C.MODEL.EVA02.MLP_HIDDEN = 2730  # SwiGLU's hidden width, int(1024 * 4 * 2 / 3)
+    _C.MODEL.EVA02.WINDOW_SIZE = 16  # windowed blocks' window, padded bottom and right
+    _C.MODEL.EVA02.GLOBAL_BLOCKS = [2, 5, 8, 11, 14, 17, 20, 23]  # blocks that attend globally
+    _C.MODEL.EVA02.POS_GRID = 16  # the absolute position table's side, resized to the patch grid
+    _C.MODEL.EVA02.ROPE_PT = 16  # RoPE's pre-training grid side: positions scale by PT / FT
+    _C.MODEL.EVA02.ROPE_GLOBAL_FT = 96  # RoPE's grid side in global blocks (a window's is WINDOW_SIZE)
+    _C.MODEL.EVA02.DROP_PATH_RATE = 0.0  # stochastic depth, linspace(0, rate) over the blocks
+
     _C.MODEL.FPN = CN()
     _C.MODEL.FPN.IN_FEATURES = ["res2", "res3", "res4", "res5"]
     _C.MODEL.FPN.OUT_CHANNELS = 256

@@ -47,7 +47,7 @@ from .roi_heads import (
 from .mvit import MViT, MViTConfig
 from .rpn import ClsFreeRPNHead, rpn_losses, rpn_targets, select_proposals
 from .swin import SwinTransformer
-from .vit import ViTSimpleFPN
+from .vit import EVA02Config, EVA02SimpleFPN, ViTSimpleFPN
 
 RPN_STRIDES = (4, 8, 16, 32, 64)
 ROI_STRIDES = (4, 8, 16, 32)
@@ -116,6 +116,7 @@ class ModelSpec(NamedTuple):
     swin_drop_path: float
     vit_drop_path: float
     mvit: MViTConfig
+    eva02: EVA02Config
 
     @staticmethod
     def from_cfg(cfg, id_map: Optional[Sequence[int]] = None) -> "ModelSpec":
@@ -182,6 +183,7 @@ class ModelSpec(NamedTuple):
             swin_drop_path=m.SWIN.get("DROP_PATH_RATE", 0.0),
             vit_drop_path=m.VIT.get("DROP_PATH_RATE", 0.0) if "VIT" in m else 0.0,
             mvit=MViTConfig.from_cfg(m.MVIT),
+            eva02=EVA02Config.from_cfg(m.EVA02),
         )
 
 
@@ -208,9 +210,9 @@ def known_ids_id_map(num_classes: int, known_contiguous_ids: Sequence[int]) -> L
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-RESNET, SWIN, VIT, MVIT = ("build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone",
-                           "build_mvit_fpn_backbone")
-BACKBONES = (RESNET, SWIN, VIT, MVIT)
+RESNET, SWIN, VIT, MVIT, EVA02 = ("build_resnet_fpn_backbone", "build_swin_fpn_backbone", "build_vit_fpn_backbone",
+                                  "build_mvit_fpn_backbone", "build_eva02_fpn_backbone")
+BACKBONES = (RESNET, SWIN, VIT, MVIT, EVA02)
 
 
 class OpensetRCNN(nn.Module):
@@ -220,7 +222,8 @@ class OpensetRCNN(nn.Module):
     module builds it (``openset_rcnn_tpu/models/detector.py:196-220``): a
     ResNet + FPN (``TPU.REMAT`` recomputes its blocks in the backward), a
     Swin Transformer + FPN, or the ViT with its simple pyramid (no ``fpn``);
-    or, in the port only, MViTv2 + FPN (``MODEL.MVIT``).
+    or, in the port only, MViTv2 + FPN (``MODEL.MVIT``) or EVA-02 with the
+    ViT's simple pyramid (``MODEL.EVA02``).
     It runs in float32 or bfloat16 (``TPU.DTYPE``; bf16 covers the trunk,
     FPN, RPN head and box head, with parameters, losses and the other heads
     in f32, as the JAX module) with the static RoIAlign grid or the adaptive
@@ -247,6 +250,9 @@ class OpensetRCNN(nn.Module):
         num_anchors = len(spec.anchor_aspect_ratios) * len(spec.anchor_sizes[0])
         if spec.backbone_name == VIT:  # the ViTDet trunk emits the pyramid itself
             self.backbone = ViTSimpleFPN(compute_dtype=dtype, drop_path_rate=spec.vit_drop_path)
+            self.fpn = None
+        elif spec.backbone_name == EVA02:
+            self.backbone = EVA02SimpleFPN(spec.eva02, compute_dtype=dtype)
             self.fpn = None
         elif spec.backbone_name == SWIN:
             self.backbone = SwinTransformer(size=spec.swin_size, window=spec.swin_window, compute_dtype=dtype,
@@ -346,9 +352,10 @@ TRUNK_STAGE = "backbone."  # prefix of the marks of a trunk's own stages
 def backbone_stages(model: OpensetRCNN) -> List[Stage]:
     """The backbone as stages: one, "backbone" (preprocess, trunk, FPN),
     or, where the trunk gives its own (``resolution_stages()``: Swin's and
-    MViT's four stages), "backbone.<name>" for each (the first with the preprocess),
-    then "backbone" for the FPN. Either way the last stage returns
-    (P2-P6, image_hw)."""
+    MViT's four stages, EVA-02's trunk), "backbone.<name>" for each (the first
+    with the preprocess), then "backbone" for the FPN, or for the trunk's
+    own pyramid where it has no FPN (EVA-02). Either way the last stage
+    returns (P2-P6, image_hw)."""
     trunk = getattr(model.backbone, "resolution_stages", None)
     if trunk is None:
         def backbone(images, image_hw):
@@ -368,7 +375,7 @@ def backbone_stages(model: OpensetRCNN) -> List[Stage]:
         return stage
 
     def fpn(x, feats, image_hw):
-        return model.fpn(feats), image_hw
+        return (model.backbone.pyramid(x) if model.fpn is None else model.fpn(feats)), image_hw
 
     stages = [(TRUNK_STAGE + name, run(fn, i == 0)) for i, (name, fn) in enumerate(trunk())]
     return stages + [("backbone", fpn)]

@@ -41,7 +41,8 @@ Span names, dotted by layer (where each is recorded):
   ``stage.rpn``, ``stage.sampling``, ``stage.roi_align``, ``stage.heads``,
   ``stage.backward``, ``stage.optimizer``; inside ``predict``'s eager
   calls, a trunk's own stages ``stage.backbone.res2`` .. ``.res5`` (Swin,
-  MViT);
+  MViT) or ``stage.backbone.trunk`` (EVA-02: patch embed, positions, the
+  blocks and the final norm, before its pyramid's ``backbone``);
 * ``eval.wait`` (``HostCopy.numpy``'s wait for the copies),
   ``eval.consume`` (per batch, with its ``image_ids``: the cascade or
   finalize and the evaluator's ``process``), ``eval.evaluate`` (the
@@ -58,6 +59,12 @@ those padded to window multiples); ``mvit.q_tokens``, ``mvit.kv_tokens``,
 ``mvit.attn_logits`` (``models/mvit.py``, per stage of an eager or capturing
 call: the query and the key/value tokens after pooling, and the attention
 logits materialised, padded windows included, x blocks x batch);
+``vit.window_tokens``, ``vit.global_tokens``, ``vit.attn_logits``,
+``vit.rope_rows`` (``models/vit.py``, once per ``trunk`` of an eager or
+capturing call, summed over the blocks and the batch: the tokens entering
+windowed attention, padding included, and global attention; the logits
+materialised, x heads; the q and k rows rotated by RoPE, one a head and
+token, 0 on ViT-B);
 ``kernel.roi_align_fwd``,
 ``kernel.roi_align_fwd.adaptive``, ``kernel.roi_align_window``,
 ``kernel.roi_align_bwd``, ``kernel.roi_align_bwd.adaptive``,

@@ -144,9 +144,9 @@ def setup():
 
 def test_production_config_builds_in_bf16(setup):
     spec, pspec = setup["spec"], setup["pspec"]
-    # MODEL.SWIN.WINDOW, which JAX's spec does not carry to its trunk, and MODEL.MVIT (MViTv2-T's defaults),
-    # a trunk JAX does not have
-    port_only = {"swin_window": 7, "mvit": port_det.MViTConfig()}
+    # MODEL.SWIN.WINDOW, which JAX's spec does not carry to its trunk, and MODEL.MVIT (MViTv2-T's defaults)
+    # and MODEL.EVA02 (EVA-02-L's), trunks JAX does not have
+    port_only = {"swin_window": 7, "mvit": port_det.MViTConfig(), "eva02": port_det.EVA02Config()}
     assert pspec._asdict() == {**{k: spec._asdict()[k] for k in port_det.ModelSpec._fields if k not in port_only},
                                **port_only}
     assert (pspec.compute_dtype, pspec.roi_align_impl, pspec.roi_align_bwd) == ("bfloat16", "auto", "pallas_bf16")

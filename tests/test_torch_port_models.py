@@ -103,9 +103,9 @@ def jax_features(setup):
 
 def test_model_spec_from_cfg_matches_jax(setup):
     jax_fields = setup["spec"]._asdict()
-    # MODEL.SWIN.WINDOW, which JAX's spec does not carry to its trunk, and MODEL.MVIT (MViTv2-T's defaults),
-    # a trunk JAX does not have
-    port_only = {"swin_window": 7, "mvit": port_det.MViTConfig()}
+    # MODEL.SWIN.WINDOW, which JAX's spec does not carry to its trunk, and MODEL.MVIT (MViTv2-T's defaults)
+    # and MODEL.EVA02 (EVA-02-L's), trunks JAX does not have
+    port_only = {"swin_window": 7, "mvit": port_det.MViTConfig(), "eva02": port_det.EVA02Config()}
     assert setup["pspec"]._asdict() == {**{k: jax_fields[k] for k in port_det.ModelSpec._fields
                                            if k not in port_only}, **port_only}
 
